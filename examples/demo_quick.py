@@ -21,9 +21,9 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-from kanodes_tpu.experiments.lv import LVConfig, make_data, run  # noqa: E402
-from kanodes_tpu.diag.plots import loss_curves, lv_reconstruction  # noqa: E402
-from kanodes_tpu.train.config import override_from_args  # noqa: E402
+from kanodes.experiments.lv import LVConfig, make_data, run  # noqa: E402
+from kanodes.diag.plots import loss_curves, lv_reconstruction  # noqa: E402
+from kanodes.train.config import override_from_args  # noqa: E402
 
 
 def main() -> None:

@@ -1,50 +1,36 @@
-"""kanodes_tpu — a TPU-native (JAX/XLA/Pallas) framework for KAN-ODEs.
+"""The package's former name, kept as an alias of `kanodes`.
 
-A from-scratch rebuild of the capabilities of maharshi-coding/KAN-ODEs
-(CMAME 2024, "KAN-ODEs: Kolmogorov-Arnold Network Ordinary Differential
-Equations...") as a layered, tested, jit-first JAX library:
-
-  ops/         basis functions (rbf/rswaf/iqf/bspline) + fused Pallas kernels
-  models/      KDense KAN layer, chains, MLP baselines, B-spline KAN, PINN nets
-  ode/         adaptive Tsit5 / fixed RK steppers (lax control flow),
-               direct-backprop and continuous-adjoint differentiation
-  pde/         method-of-lines operators, gray-box RHS composition, data gen
-  pinn/        collocation samplers, nested-grad residuals, loss curricula
-  train/       jitted optimization loops, checkpointing, configs
-  sparsify/    L1+entropy regularization, activation extraction, pruning,
-               grid refinement
-  symbolic/    symbolic-regression post-pass over trained activations
-  parallel/    mesh/sharding helpers (grid-sharded RHS, batched sweeps)
-  experiments/ one config-driven module per reference experiment
-  diag/        metrics, plots, pass/fail gates
-
-The reference implementation is a set of Julia (Lux + OrdinaryDiffEq + Zygote)
-and PyTorch scripts; this library is NOT a port — control flow is `lax.scan`/
-`lax.while_loop`, hot kernels are Pallas, parallelism is `jax.sharding`.
+Importing any submodule under this name returns the very module object
+`kanodes` holds (one copy of every class and registry), and
+`python -m <this name> ...` runs the `kanodes` CLI. New code imports
+`kanodes`.
 """
 
-__version__ = "0.1.0"
+import importlib
+import importlib.abc
+import importlib.util
+import sys
 
-from kanodes_tpu.ops import basis as basis
-from kanodes_tpu.models.kdense import KDense, KDense1, KANChain
-from kanodes_tpu.models.mlp import MLP
-from kanodes_tpu.models.bspline import BSplineKAN, BSplineKANChain
-from kanodes_tpu.models.hybrid import DataNormalizer, HybridKANMLP
-from kanodes_tpu.ode.integrate import odeint, odeint_fixed, odeint_adjoint
-from kanodes_tpu.ode.stiff import odeint_implicit
+import kanodes
 
-__all__ = [
-    "basis",
-    "KDense",
-    "KDense1",
-    "KANChain",
-    "MLP",
-    "BSplineKAN",
-    "BSplineKANChain",
-    "DataNormalizer",
-    "HybridKANMLP",
-    "odeint",
-    "odeint_fixed",
-    "odeint_adjoint",
-    "odeint_implicit",
-]
+_OLD, _NEW = __name__, "kanodes"
+
+
+class _Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolve `<old>.x.y` to the already-importable `kanodes.x.y`."""
+
+    def find_spec(self, fullname, path=None, target=None):
+        if not fullname.startswith(_OLD + ".") or \
+                fullname == _OLD + ".__main__":
+            return None
+        return importlib.util.spec_from_loader(fullname, self)
+
+    def create_module(self, spec):
+        return importlib.import_module(_NEW + spec.name[len(_OLD):])
+
+    def exec_module(self, module):
+        pass
+
+
+sys.meta_path.insert(0, _Alias())
+sys.modules[_OLD] = kanodes

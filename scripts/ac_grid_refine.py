@@ -16,7 +16,7 @@ So the demonstration runs BOTH arms at G=5, where resolution binds:
   fixed:    the identical 1e5 schedule on the default [-1, 1] grid.
 
 The refit changes the fused kernels' static grid constants (one fresh
-Mosaic compile set) and restarts the optimizer (Adam moments for the
+kernel compile set) and restarts the optimizer (Adam moments for the
 old basis are meaningless in the new one).
 
 Artifact: artifacts/allen_cahn_grid_refine.json.
@@ -32,16 +32,18 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np
 
-from kanodes_tpu.experiments.pde_surrogate import (SurrogateConfig,
-                                                   make_data, make_model,
-                                                   make_fns)
-from kanodes_tpu.sparsify.grid_refine import refine_kdense_chain_grid
-from kanodes_tpu.train.loop import TrainConfig, train
+from kanodes.experiments.pde_surrogate import (SurrogateConfig,
+                                               make_data, make_model,
+                                               make_fns)
+from kanodes.sparsify.grid_refine import refine_kdense_chain_grid
+from kanodes.train.loop import TrainConfig, train
 
 KAN_GRID = 5
 REFIT_AT = 200

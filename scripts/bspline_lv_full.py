@@ -9,8 +9,8 @@ notes the adjoint is "slightly slower" at these sizes
 (`Lotka-Volterra-Pytorch/README.md:5`).
 
 This runs both flavors (plus the checkpointed-interpolating adjoint,
-this framework's stable alternative) at the exact budget on the v5e
-and commits the artifact.
+this framework's stable alternative) at the exact budget and commits
+the artifact.
 """
 
 import json
@@ -23,9 +23,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
 
-from kanodes_tpu.experiments import lv  # noqa: E402
+enable_compile_cache()
+
+from kanodes.experiments import lv  # noqa: E402
 
 OUT = "artifacts/bspline_lv_full.json"
 

@@ -4,11 +4,8 @@ The LV packed sweep (`scripts/lv_multiseed_packed.py`) measured ~10x
 per-member throughput at LV sizes ([2,10,2] members). This script
 answers VERDICT r4 #4: does the win carry to the WIDE surrogate chains?
 Five [41,10,41] Burgers members ride as block-diagonal weights of one
-[205,50,205] chain through the grid-sliced wide kernels
-(`SurrogateConfig(wide_kernels=True)` — forced, both because the auto
-threshold would pick the standard kernels at 205*5=1025 and because the
-wide flavor loads 4-10x faster in a fresh process,
-artifacts/packed_load_ab.json).
+[205,50,205] chain through the whole-RK-step kernels (205*5 = 1025 is
+under the kernel's width threshold).
 
 Recipe = the sequential sweep's fast record recipe
 (`scripts/surrogate_seed_robustness.py`: shooting 1e-2 x 10k +
@@ -21,7 +18,7 @@ SINGLE-member high-precision closure.
 
 Writes artifacts/burgers_multiseed_packed.json.
 Usage: python scripts/burgers_multiseed_packed.py
-One TPU process at a time (CLAUDE.md).
+One process per card.
 """
 
 import dataclasses
@@ -37,18 +34,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
-from kanodes_tpu.experiments.pde_surrogate import (SurrogateConfig,  # noqa: E402
-                                                   make_data, make_fns,
-                                                   make_model)
-from kanodes_tpu.models.packed import (apply_mask, block_mask,  # noqa: E402
-                                       extract_member, member_mean,
-                                       pack_chain, pack_params)
-from kanodes_tpu.train.loop import TrainConfig, train  # noqa: E402
-from kanodes_tpu.train.polish import (PolishConfig,  # noqa: E402
-                                      polish_members)
+from kanodes.experiments.pde_surrogate import (SurrogateConfig,  # noqa: E402
+                                               make_data, make_fns,
+                                               make_model)
+from kanodes.models.packed import (apply_mask, block_mask,  # noqa: E402
+                                   extract_member, member_mean,
+                                   pack_chain, pack_params)
+from kanodes.train.loop import TrainConfig, train  # noqa: E402
+from kanodes.train.polish import (PolishConfig,  # noqa: E402
+                                  polish_members)
 
 OUT = "artifacts/burgers_multiseed_packed.json"
 SEEDS = list(range(5))
@@ -60,7 +59,7 @@ def main():
     S = len(SEEDS)
     base = SurrogateConfig(problem="burgers", impl="fused",
                            rk_solver="tsit5", substeps=20,
-                           bwd_precision="bf16", wide_kernels=True,
+                           bwd_precision="tf32",
                            max_iters_per_call=2_000, eval_every=500)
     data = make_data(base)
     model = make_model(base, data)
@@ -79,9 +78,8 @@ def main():
 
     # single-member closures for polish + final per-member metrics.
     # The polish objective rides the XLA path (plain jnp, f32-precision
-    # dots): it vmaps over the member axis without touching Mosaic —
-    # a vmapped Pallas polish program would pay the packed first-load
-    # all over again for 60 iterations of work. Final MSEs are then
+    # dots): it vmaps over the member axis without a kernel compile
+    # for 60 iterations of work. Final MSEs are then
     # re-evaluated through the SAME fused flow the sequential sweep
     # reported, so the recorded numbers stay directly comparable.
     cfg_hi = dataclasses.replace(base, solve_mode="fixed",
@@ -153,8 +151,8 @@ def main():
         pass
     summary = {
         "problem": "burgers", "n_seeds": S,
-        "mode": ("packed block-diagonal [205,50,205] via wide kernels "
-                 "(models/packed.py + ops/rk_fused_wide)"),
+        "mode": ("packed block-diagonal [205,50,205] via the "
+                 "whole-RK-step kernels (models/packed.py + ops/rk_fused)"),
         "recipe": "fast(shooting+capture+vmapped polish_members)",
         "phases": PHASES, "polish_iters": POLISH_ITERS,
         "train_seconds": train_secs,

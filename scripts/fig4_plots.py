@@ -18,7 +18,7 @@ RHS, and :345-411 activation_plots/ incl. the *_symb_* files):
 
 Artifacts: artifacts/figures/contour_compare/*.png,
 artifacts/figures/activation_plots/*.png, artifacts/fig4_summary.json.
-Run on the TPU chip (one process at a time).
+Run on the GPU (one process per card).
 """
 
 import dataclasses
@@ -31,17 +31,19 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np
 
-from kanodes_tpu.diag.plots import (activation_symbolic_overlays,
-                                    contour_compare)
-from kanodes_tpu.experiments import lv as lv_mod
-from kanodes_tpu.experiments.lv_symbolic import (SymbolicPipelineConfig,
+from kanodes.diag.plots import (activation_symbolic_overlays,
+                                contour_compare)
+from kanodes.experiments import lv as lv_mod
+from kanodes.experiments.lv_symbolic import (SymbolicPipelineConfig,
                                                 run_pipeline)
-from kanodes_tpu.symbolic.fit import compose_edge_equations
+from kanodes.symbolic.fit import compose_edge_equations
 
 OUT = "artifacts"
 t0 = time.time()

@@ -17,7 +17,7 @@ magnitude-threshold edge pruning of the optimized model at 0.01 with
 post-prune re-evaluation (optimized_kan.py:256-273), and a JSON report.
 
 Artifacts: artifacts/harness_compare.json, artifacts/figures/harness_*.png.
-Run on the TPU chip (one process at a time).
+Run on the GPU (one process per card).
 """
 
 import dataclasses
@@ -30,22 +30,24 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np
 
-from kanodes_tpu.experiments import lv as lv_mod
-from kanodes_tpu.models.bspline import BSplineKANChain
-from kanodes_tpu.models.hybrid import DataNormalizer, HybridKANMLP
-from kanodes_tpu.ode import odeint_fixed
-from kanodes_tpu.sparsify.edge_prune import prune_chain_edges
-from kanodes_tpu.sparsify.regularization import (l2_reg,
-                                                 spline_smoothness_reg)
-from kanodes_tpu.train.harness import (HarnessConfig, compare_models,
-                                       curriculum_train, evaluate_model,
-                                       time_ordered_split)
-from kanodes_tpu.train.loop import TrainConfig, train
+from kanodes.experiments import lv as lv_mod
+from kanodes.models.bspline import BSplineKANChain
+from kanodes.models.hybrid import DataNormalizer, HybridKANMLP
+from kanodes.ode import odeint_fixed
+from kanodes.sparsify.edge_prune import prune_chain_edges
+from kanodes.sparsify.regularization import (l2_reg,
+                                             spline_smoothness_reg)
+from kanodes.train.harness import (HarnessConfig, compare_models,
+                                   curriculum_train, evaluate_model,
+                                   time_ordered_split)
+from kanodes.train.loop import TrainConfig, train
 
 t0 = time.time()
 hc = HarnessConfig(curriculum_iters=(500, 1000, 3500))  # 5000 epochs total
@@ -155,7 +157,7 @@ print(f"[6] pruning: {n_pruned} edges zeroed, full-horizon MSE "
 
 # ---- steps 8-10: plots, report, summary ------------------------------------
 os.makedirs("artifacts/figures", exist_ok=True)
-from kanodes_tpu.diag.plots import lv_reconstruction
+from kanodes.diag.plots import lv_reconstruction
 
 
 def rollout(model, params):

@@ -8,7 +8,7 @@ fast shooting curriculum as the committed d=2 KAN sweep points
 trajectory train/test MSE. Appends rows (tagged depth=3) to
 `sweep_results.json`; resumable — skips sizes already recorded.
 
-One TPU process at a time (CLAUDE.md).
+One process per card.
 """
 
 import json
@@ -20,10 +20,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
-from kanodes_tpu.experiments.sweep import KAN3_SWEEP, train_point
+from kanodes.experiments.sweep import KAN3_SWEEP, train_point
 
 OUT = "sweep_results.json"
 

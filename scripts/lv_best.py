@@ -19,7 +19,7 @@ the winner on the exact-f32 trajectory objective. Artifacts:
   artifacts/lv_best.json                        train AND test MSE
 
 Usage: python scripts/lv_best.py [rbf iqf ...]
-One TPU process at a time (CLAUDE.md).
+One process per card.
 """
 
 import dataclasses
@@ -35,11 +35,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
 
-from kanodes_tpu.experiments import lv  # noqa: E402
-from kanodes_tpu.train.loop import TrainConfig, train  # noqa: E402
-from kanodes_tpu.train.polish import PolishConfig, polish  # noqa: E402
+enable_compile_cache()
+
+from kanodes.experiments import lv  # noqa: E402
+from kanodes.train.loop import TrainConfig, train  # noqa: E402
+from kanodes.train.polish import PolishConfig, polish  # noqa: E402
 
 OUT = "artifacts/lv_best.json"
 PHASES = [("shooting", 1, 3e-3, 10_000), ("shooting", 4, 1e-3, 6_000),

@@ -6,7 +6,7 @@ shared ONE step controller, so a reference-faithful adaptive seed study
 could not ride the packed path. Round 5 added per-member step control
 (`ode.odeint_members`: per-member error norms, a per-member dt vector,
 and per-member save-point clipping inside one bounded scan); this
-script measures it at S=8 on the v5e:
+script measures it at S=8:
 
   1. DEVICE PARITY at init: the packed per-member loss/eval vectors
      against each member's own sequential adaptive solve.
@@ -19,7 +19,7 @@ script measures it at S=8 on the v5e:
 
 Writes artifacts/lv_multiseed_adaptive.json.
 Usage: python scripts/lv_multiseed_adaptive.py
-One TPU process at a time (CLAUDE.md).
+One process per card.
 """
 
 import dataclasses
@@ -33,15 +33,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np
 
-from kanodes_tpu.experiments import lv
-from kanodes_tpu.models.packed import (apply_mask, block_mask, member_mean,
-                                       pack_chain, pack_params, tile_state)
-from kanodes_tpu.train.loop import TrainConfig, train
+from kanodes.experiments import lv
+from kanodes.models.packed import (apply_mask, block_mask, member_mean,
+                                   pack_chain, pack_params, tile_state)
+from kanodes.train.loop import TrainConfig, train
 
 S = 8
 ITERS = 5000

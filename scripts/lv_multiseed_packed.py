@@ -8,7 +8,7 @@ lv_multiseed_vmapped / this):
     serializes the latency-bound in-kernel step chain 8x;
   * packed (`models/packed.py`): the 8 member chains ride as
     block-diagonal weights of ONE [16, 80, 16] chain — the member axis
-    becomes GEMM width (MXU lanes), which is free at these sizes, so
+    becomes GEMM width, which is free at these sizes, so
     the whole ensemble steps at ~single-member latency.
 
 Per-member best train MSE comes from the per-iteration [iters, S] loss
@@ -18,7 +18,7 @@ through the single-member closures.
 
 Writes artifacts/lv_multiseed_packed.json.
 Usage: python scripts/lv_multiseed_packed.py
-One TPU process at a time (CLAUDE.md).
+One process per card.
 """
 
 import dataclasses
@@ -33,15 +33,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 
-from kanodes_tpu.experiments import lv  # noqa: E402
-from kanodes_tpu.models.packed import (apply_mask, block_mask,  # noqa: E402
-                                       extract_member, member_mean,
-                                       pack_chain, pack_params, tile_state)
-from kanodes_tpu.train.loop import TrainConfig, train  # noqa: E402
+from kanodes.experiments import lv  # noqa: E402
+from kanodes.models.packed import (apply_mask, block_mask,  # noqa: E402
+                                   extract_member, member_mean,
+                                   pack_chain, pack_params, tile_state)
+from kanodes.train.loop import TrainConfig, train  # noqa: E402
 
 OUT = "artifacts/lv_multiseed_packed.json"
 SEEDS = list(range(8))

@@ -9,10 +9,9 @@ member axis, loss = jax.vmap(member_loss)).
 Measured outcome (artifacts/lv_multiseed_vmapped.json): per-member
 results BITWISE equal to the sequential sweep; total 40.9 s vs 62.6 s
 (warm caches both). The win is dispatch/compile amortization, not free
-redundancy — vmap lifts the member axis into the Pallas kernel GRID,
-so the latency-bound in-kernel step chain scales with S (the MFU table
-shows these shapes at 0.01-0.03% MXU: latency, not FLOPs, is the
-cost, and the grid serializes it).
+redundancy — vmap lifts the member axis into the kernel, so the
+latency-bound in-kernel step chain scales with S (latency, not FLOPs,
+is the cost at these shapes).
 
 Reference anchor: the reference's published numbers are single-seed
 (`Lotka-Volterra/LV_driver_KANODE.jl:114`, `trend_plotter.py:7-8`);
@@ -20,7 +19,7 @@ seed studies there mean hand-edited sequential reruns.
 
 Writes artifacts/lv_multiseed_vmapped.json.
 Usage: python scripts/lv_multiseed_vmapped.py
-One TPU process at a time (CLAUDE.md).
+One process per card.
 """
 
 import dataclasses
@@ -35,13 +34,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 
-from kanodes_tpu.experiments import lv  # noqa: E402
-from kanodes_tpu.train.loop import (TrainConfig, init_stacked,  # noqa: E402
-                                    member_params, train)
+from kanodes.experiments import lv  # noqa: E402
+from kanodes.train.loop import (TrainConfig, init_stacked,  # noqa: E402
+                                member_params, train)
 
 OUT = "artifacts/lv_multiseed_vmapped.json"
 SEEDS = list(range(8))

@@ -7,7 +7,7 @@ Separates the two possible explanations of the ~1e-8 Adam floor:
 optimizer wander (polish goes lower) vs model capacity at 240 params
 (polish plateaus). Writes artifacts/lv_polish.json.
 
-One TPU process at a time (CLAUDE.md).
+One process per card.
 """
 
 import dataclasses
@@ -22,12 +22,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
-from kanodes_tpu.experiments import lv  # noqa: E402
-from kanodes_tpu.train.loop import TrainConfig, train  # noqa: E402
-from kanodes_tpu.train.polish import PolishConfig, polish  # noqa: E402
+from kanodes.experiments import lv  # noqa: E402
+from kanodes.train.loop import TrainConfig, train  # noqa: E402
+from kanodes.train.polish import PolishConfig, polish  # noqa: E402
 
 OUT = "artifacts/lv_polish.json"
 PHASES = [("shooting", 1, 3e-3, 10_000), ("shooting", 4, 1e-3, 6_000),

@@ -22,10 +22,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
 
-from kanodes_tpu.experiments import lv  # noqa: E402
-from kanodes_tpu.train.loop import TrainConfig, train  # noqa: E402
+enable_compile_cache()
+
+from kanodes.experiments import lv  # noqa: E402
+from kanodes.train.loop import TrainConfig, train  # noqa: E402
 
 OUT = "artifacts/lv_record.json"
 PHASES = [("shooting", 1, 3e-3, 10_000), ("shooting", 4, 1e-3, 6_000),

@@ -25,12 +25,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 
-from kanodes_tpu.experiments import lv  # noqa: E402
-from kanodes_tpu.train.loop import TrainConfig, train  # noqa: E402
+from kanodes.experiments import lv  # noqa: E402
+from kanodes.train.loop import TrainConfig, train  # noqa: E402
 
 OUT = "artifacts/lv_seed_robustness.json"
 SEEDS = list(range(8))

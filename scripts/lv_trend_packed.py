@@ -3,8 +3,8 @@
 The reference produced its param-efficiency trend by hand-editing
 `layer_width`/`grid_size` and re-running 1e5 CPU iterations per point,
 then hardcoding the 8 converged losses into `trend_plotter.py:7-8`.
-`run_sweep` (sweep_results.json) collapses each point to ~10 s on the
-v5e but still trains the sizes sequentially. This script runs
+`run_sweep` (sweep_results.json) collapses each point to a short run
+but still trains the sizes sequentially. This script runs
 `experiments.sweep.packed_trend_sweep`: all 8 sizes — different hidden
 widths AND different grid sizes — pack block-diagonally into one
 heterogeneous chain (`models.packed.HeteroPacked`) and train
@@ -20,7 +20,7 @@ Usage: python scripts/lv_trend_packed.py [--lr-factors] [--polish N]
   --polish N appends the mask-aware packed L-BFGS stage
   (`train.packed_polish`): all 8 heterogeneous members polish
   SIMULTANEOUSLY with per-member curvature + line searches.
-One TPU process at a time (CLAUDE.md).
+One process per card.
 """
 
 import json
@@ -33,10 +33,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
 
-from kanodes_tpu.experiments.sweep import (KAN_SWEEP, REFERENCE_KAN_TREND,
-                                           packed_trend_sweep)
+enable_compile_cache()
+
+from kanodes.experiments.sweep import (KAN_SWEEP, REFERENCE_KAN_TREND,
+                                       packed_trend_sweep)
 
 
 def annotate(rows):

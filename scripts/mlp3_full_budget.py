@@ -9,7 +9,7 @@ arithmetic). Reference regime, exactly as the d=2 sweep
 over the 35-point train horizon, adaptive Tsit5.
 
 Targets: 29->2.0e-4, 57->2.6e-4, 114->3.6e-5, 162->3.7e-5, 522->2.96e-5.
-Resumable per size via checkpoints. One TPU process at a time.
+Resumable per size via checkpoints. One process per card.
 """
 
 import dataclasses
@@ -22,12 +22,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 
-from kanodes_tpu.experiments.lv import LVConfig, run
-from kanodes_tpu.train.checkpoint import Checkpointer
+from kanodes.experiments.lv import LVConfig, run
+from kanodes.train.checkpoint import Checkpointer
 
 TOTAL_ITERS = 100_000
 TARGETS = {3: 2.0e-4, 5: 2.6e-4, 8: 3.6e-5, 10: 3.7e-5, 20: 2.96e-5}

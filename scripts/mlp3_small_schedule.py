@@ -20,11 +20,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 
-from kanodes_tpu.experiments.lv import LVConfig, run
+from kanodes.experiments.lv import LVConfig, run
 
 TARGETS = {3: 2.0e-4, 5: 2.6e-4}
 order = [int(a) for a in sys.argv[1:]] or [5, 3]

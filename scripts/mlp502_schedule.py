@@ -17,11 +17,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 
-from kanodes_tpu.experiments.lv import LVConfig, run
+from kanodes.experiments.lv import LVConfig, run
 
 PHASES = [(1e-2, 50_000), (1e-3, 30_000), (2e-4, 20_000)]
 base = LVConfig(model="mlp", mlp_widths=(2, 100, 2), init_scale=1.0,

@@ -5,7 +5,7 @@ Reference regime, exactly: `LV_driver_MLP.jl:92-97` — Dense(2,H,tanh)
 35-point train horizon, adaptive Tsit5. Sizes 52/252/502 params;
 targets 4.7e-4 / 4.14e-5 / 1.6e-5 (`trend_plotter.py:10-11`).
 
-Resumable per size via checkpoints. One TPU process at a time.
+Resumable per size via checkpoints. One process per card.
 """
 
 import dataclasses
@@ -18,12 +18,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 
-from kanodes_tpu.experiments.lv import LVConfig, run
-from kanodes_tpu.train.checkpoint import Checkpointer
+from kanodes.experiments.lv import LVConfig, run
+from kanodes.train.checkpoint import Checkpointer
 
 TOTAL_ITERS = 100_000
 TARGETS = {10: 4.7e-4, 50: 4.14e-5, 100: 1.6e-5}   # hidden -> ref loss

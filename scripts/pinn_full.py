@@ -18,12 +18,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 
-from kanodes_tpu.pinn.train import PINNConfig, train, cross_verification
-from kanodes_tpu.diag.gates import evaluate, report
+from kanodes.pinn.train import PINNConfig, train, cross_verification
+from kanodes.diag.gates import evaluate, report
 
 cfg = PINNConfig(adam_epochs=6000, finetune_epochs=4000,
                  n_adaptive=256, adaptive_candidates=1024)

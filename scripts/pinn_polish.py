@@ -25,16 +25,18 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 
-from kanodes_tpu.diag.gates import evaluate, report
-from kanodes_tpu.pinn import geometry as G
-from kanodes_tpu.pinn import losses as L
-from kanodes_tpu.pinn.model import KANPINN
-from kanodes_tpu.pinn.train import (PINNConfig, cross_verification,
-                                    polish_pinn, validation_selection)
+from kanodes.diag.gates import evaluate, report
+from kanodes.pinn import geometry as G
+from kanodes.pinn import losses as L
+from kanodes.pinn.model import KANPINN
+from kanodes.pinn.train import (PINNConfig, cross_verification,
+                                polish_pinn, validation_selection)
 
 CFG = PINNConfig(adam_epochs=6000, finetune_epochs=4000,
                  n_adaptive=256, adaptive_candidates=1024)

@@ -2,20 +2,20 @@
 
 The deep tier of the claims ledger (`diag/claims.py --deep`) reloads
 every deliverable param file and recomputes the headline MSEs. Those
-recomputes are backend-sensitive at the f32 floor (CPU vs TPU forward
+recomputes are backend-sensitive at the f32 floor (CPU vs GPU forward
 rounding: 25-30% at the 1e-8 LV floor, up to ~4x at the 1e-14 surrogate
 floor), so the expectations are stored PER BACKEND in each artifact —
 this script measures them on whatever backend it runs on and writes
-them under row["recompute"][<cpu|tpu>]. Run it once per backend after
+them under row["recompute"][<cpu|gpu>]. Run it once per backend after
 any change to the deliverable params or the forward-path code:
 
     python scripts/record_recompute.py            # current backend
-    (run on both CPU and TPU so both keys exist)
+    (run on both CPU and GPU so both keys exist)
 
-On TPU it additionally records the fused-flow recompute of the
-floor-level records (row["recompute"]["tpu"]["fused_mse"]) — the
-genuine same-flow reproduction the deep check compares against the
-claimed record.
+It also records, for the floor-level records, the recompute on the
+step grid they were trained on (row["recompute"][backend]
+["record_flow_mse"]); the deep check compares that value with the
+claimed record itself, not with the stored one.
 
 CPU runs force the platform the CLAUDE.md way (config update after
 import; env overrides are ignored): pass --cpu.
@@ -32,11 +32,13 @@ import jax
 
 if "--cpu" in sys.argv:
     jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
 
-from kanodes_tpu.diag.claims import (REPO, _backend, _by, _lv_recompute,
-                                     _surrogate_recompute,
-                                     _surrogate_recompute_fused)
+enable_compile_cache()
+
+from kanodes.diag.claims import (REPO, _backend, _by, _lv_recompute,
+                                 _surrogate_recompute,
+                                 _surrogate_recompute_record_flow)
 
 
 def _update(rel: str, match_key: str, match_val: str, values: dict):
@@ -48,6 +50,7 @@ def _update(rel: str, match_key: str, match_val: str, values: dict):
     rec.setdefault(_backend(), {}).update(values)
     with open(path, "w") as f:
         json.dump(rows, f, indent=1)
+        f.write("\n")
     print(f"{rel} [{match_val}] recompute[{_backend()}] <- {values}")
 
 
@@ -70,10 +73,9 @@ def main():
          "artifacts/allen_cahn_2d_fast_seed4_polished_params.npy"),
     ]
     for rel, problem, params_rel in records:
-        vals = {"snapshot_mse": _surrogate_recompute(problem, params_rel)}
-        if b == "tpu":
-            vals["fused_mse"] = _surrogate_recompute_fused(problem,
-                                                           params_rel)
+        vals = {"snapshot_mse": _surrogate_recompute(problem, params_rel),
+                "record_flow_mse": _surrogate_recompute_record_flow(
+                    problem, params_rel)}
         _update(rel, "problem", problem, vals)
 
 

@@ -3,7 +3,7 @@
 The reference has no serving story (its deployment unit is "re-run the
 training script with a checkpoint", `LV_driver_KANODE.jl:146-160`).
 This measures what the exported StableHLO artifacts
-(`kanodes_tpu/deploy/export.py`) sustain on one v5e chip:
+(`kanodes/deploy/export.py`) sustain on one accelerator:
 
 - RHS evaluator with a SYMBOLIC batch dim: KAN RHS evals/s at serving
   batch sizes (the "KAN RHS evals/sec/chip" north-star metric from
@@ -27,11 +27,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
 
-from kanodes_tpu.deploy import export_rhs, export_trajectory  # noqa: E402
-from kanodes_tpu.models import KDense  # noqa: E402
-from kanodes_tpu.models.core import Chain  # noqa: E402
+enable_compile_cache()
+
+from kanodes.deploy import export_rhs, export_trajectory  # noqa: E402
+from kanodes.models import KDense  # noqa: E402
+from kanodes.models.core import Chain  # noqa: E402
 
 OUT = "artifacts/serve_bench.json"
 

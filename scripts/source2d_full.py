@@ -23,12 +23,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
 
-from kanodes_tpu.experiments.pde_source import (SourceConfig,  # noqa: E402
-                                                make_data, make_fns,
-                                                make_model, recover_source)
-from kanodes_tpu.train.loop import TrainConfig, train  # noqa: E402
+enable_compile_cache()
+
+from kanodes.experiments.pde_source import (SourceConfig,  # noqa: E402
+                                            make_data, make_fns,
+                                            make_model, recover_source)
+from kanodes.train.loop import TrainConfig, train  # noqa: E402
 
 PROBLEM = sys.argv[1] if len(sys.argv) > 1 else "fisher_kpp"
 # (lr, iters): phase 0 = the 1-D reference budget

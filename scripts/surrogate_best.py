@@ -12,7 +12,7 @@ paper model can be selected post hoc (`Plotting_standard.jl:105-110`).
 
 This script re-runs the record recipe with
 `train(..., record_history=True)` (a param snapshot at every eval
-point, the bounded TPU-native version of the reference's p_list),
+point, the bounded on-device version of the reference's p_list),
 selects the argmin-eval snapshot across all phases
 (`select_from_history`), additionally folds in the fixed-phase
 per-ITERATION argmin (`track_best` on the trajectory objective), and
@@ -24,7 +24,7 @@ backward). Artifacts:
   artifacts/{problem}_best_run.json           the numbers
 
 Usage: python scripts/surrogate_best.py [schrodinger|allen_cahn] ...
-One TPU process at a time (CLAUDE.md).
+One process per card.
 """
 
 import dataclasses
@@ -40,15 +40,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
-from kanodes_tpu.experiments.pde_surrogate import (SurrogateConfig,
-                                                   make_data, make_model,
-                                                   make_fns)
-from kanodes_tpu.train.checkpoint import select_from_history
-from kanodes_tpu.train.loop import TrainConfig, train
-from kanodes_tpu.train.polish import PolishConfig, polish
+from kanodes.experiments.pde_surrogate import (SurrogateConfig,
+                                               make_data, make_model,
+                                               make_fns)
+from kanodes.train.checkpoint import select_from_history
+from kanodes.train.loop import TrainConfig, train
+from kanodes.train.polish import PolishConfig, polish
 
 # the record configs and lr ladders of scripts/surrogate_full.py
 # (rk4@24 for the stability-bound problems, tsit5@20 for
@@ -84,7 +86,7 @@ def run(problem: str, polish_iters: int = 150,
     solver, substeps = SOLVER_BY_PROBLEM[problem]
     base = SurrogateConfig(problem=problem, impl="fused",
                            rk_solver=solver, substeps=substeps,
-                           bwd_precision="bf16",
+                           bwd_precision="tf32",
                            max_iters_per_call=2_000, eval_every=500)
     if seed is not None:
         base = dataclasses.replace(base, seed=seed)

@@ -4,8 +4,8 @@
 Matches each problem's reference budget (1e5 iters for Schrödinger /
 Allen-Cahn, 2e4 for Burgers — `Schrodinger_Surrogate.jl:170-173`,
 `Allen-Cahn_Surrogate.jl:82-87`, `Burgers_Surrogate.jl:82-88`) on the
-TPU-native path: snapshot-shooting warmup then trajectory polish, on
-the fused MULTISTEP kernels (windowed cross-step backward; trajectory
+fused path: snapshot-shooting warmup then trajectory polish, on
+the fused MULTISTEP kernels (recompute-based backward; trajectory
 mode is one whole-horizon kernel launch per iteration).
 
 Phases that share a solve_mode share ONE set of loss closures, so the
@@ -40,16 +40,18 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np
 
-from kanodes_tpu.experiments.pde_surrogate import (SurrogateConfig,
-                                                   make_data, make_model,
-                                                   make_fns)
-from kanodes_tpu.train.checkpoint import select_from_history
-from kanodes_tpu.train.loop import TrainConfig, train
+from kanodes.experiments.pde_surrogate import (SurrogateConfig,
+                                               make_data, make_model,
+                                               make_fns)
+from kanodes.train.checkpoint import select_from_history
+from kanodes.train.loop import TrainConfig, train
 
 OUT = f"artifacts/{PROBLEM}_full{_TAG}.json"
 PARAMS_NPY = f"artifacts/{PROBLEM}_full{_TAG}_params.npy"

@@ -15,7 +15,7 @@ Runs with an exact-f32 backward (`bwd_precision="highest"`): at
 1e-13-class losses bf16 gradient noise exceeds the signal.
 
 Usage: python scripts/surrogate_polish.py [iters]
-One TPU process at a time (CLAUDE.md).
+One process per card.
 """
 
 import dataclasses
@@ -31,13 +31,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
-from kanodes_tpu.experiments.pde_surrogate import (SurrogateConfig,
-                                                   make_data, make_model,
-                                                   make_fns)
-from kanodes_tpu.train.polish import PolishConfig, polish
+from kanodes.experiments.pde_surrogate import (SurrogateConfig,
+                                               make_data, make_model,
+                                               make_fns)
+from kanodes.train.polish import PolishConfig, polish
 
 OUT = "artifacts/surrogate_polish.json"
 

@@ -14,7 +14,7 @@ seeds so every run after the first is a pure compile-cache hit
 
 Writes artifacts/surrogate_seed_robustness.json.
 Usage: python scripts/surrogate_seed_robustness.py [problem ...]
-One TPU process at a time (CLAUDE.md).
+One process per card.
 """
 
 import dataclasses
@@ -30,15 +30,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
+from kanodes.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
-from kanodes_tpu.experiments.pde_surrogate import (SurrogateConfig,
-                                                   make_data, make_model,
-                                                   make_fns)
-from kanodes_tpu.train.checkpoint import select_from_history
-from kanodes_tpu.train.loop import TrainConfig, train
-from kanodes_tpu.train.polish import PolishConfig, polish
+from kanodes.experiments.pde_surrogate import (SurrogateConfig,
+                                               make_data, make_model,
+                                               make_fns)
+from kanodes.train.checkpoint import select_from_history
+from kanodes.train.loop import TrainConfig, train
+from kanodes.train.polish import PolishConfig, polish
 
 from surrogate_best import PHASES_BY_PROBLEM, SOLVER_BY_PROBLEM  # noqa: E402
 
@@ -54,7 +56,7 @@ def run_problem(problem: str) -> dict:
     solver, substeps = SOLVER_BY_PROBLEM[problem]
     base = SurrogateConfig(problem=problem, impl="fused",
                            rk_solver=solver, substeps=substeps,
-                           bwd_precision="bf16",
+                           bwd_precision="tf32",
                            max_iters_per_call=2_000, eval_every=500)
     data = make_data(base)
     model = make_model(base, data)

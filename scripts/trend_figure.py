@@ -9,7 +9,7 @@ Series:
   * MLP-NODE d=3  — `artifacts/mlp3_full_budget.json` (full 1e5-iter runs)
 plus the reference's published points for the three reference series.
 
-Pure-host work (matplotlib + json); no TPU needed.
+Pure-host work (matplotlib + json); no accelerator needed.
 """
 
 import json
@@ -19,8 +19,8 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-from kanodes_tpu.diag.plots import trend_plot
-from kanodes_tpu.experiments.sweep import (
+from kanodes.diag.plots import trend_plot
+from kanodes.experiments.sweep import (
     REFERENCE_KAN_TREND, REFERENCE_MLP_TREND, REFERENCE_MLP3_TREND)
 
 results = []

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kanodes_tpu.ops import basis as B
+from kanodes.ops import basis as B
 
 
 GRID = B.make_grid(5)
@@ -86,7 +86,7 @@ def test_bspline_grad_flows():
 
 class TestFourierBasis:
     def test_matches_numpy(self):
-        from kanodes_tpu.ops.basis import fourier, make_grid
+        from kanodes.ops.basis import fourier, make_grid
 
         x = np.linspace(-1, 1, 23).astype(np.float32)
         for G in (1, 2, 3, 4, 7, 10):
@@ -103,7 +103,7 @@ class TestFourierBasis:
                                        rtol=2e-5, atol=2e-5)
 
     def test_periodicity(self):
-        from kanodes_tpu.ops.basis import fourier, make_grid
+        from kanodes.ops.basis import fourier, make_grid
 
         grid = make_grid(7)
         x = jnp.asarray(np.linspace(-1, 1, 11), jnp.float32)
@@ -112,7 +112,7 @@ class TestFourierBasis:
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
 
     def test_dx_matches_autodiff(self):
-        from kanodes_tpu.ops.basis import fourier, fourier_dx, make_grid
+        from kanodes.ops.basis import fourier, fourier_dx, make_grid
 
         G = 8
         grid = make_grid(G)
@@ -125,7 +125,7 @@ class TestFourierBasis:
 
 class TestChebyBasis:
     def test_matches_numpy_chebyshev(self):
-        from kanodes_tpu.ops.basis import cheby, make_grid
+        from kanodes.ops.basis import cheby, make_grid
 
         for G in (1, 2, 3, 5, 10):
             grid = make_grid(G)
@@ -139,7 +139,7 @@ class TestChebyBasis:
                                            rtol=2e-5, atol=2e-5)
 
     def test_dx_matches_autodiff(self):
-        from kanodes_tpu.ops.basis import cheby, cheby_dx, make_grid
+        from kanodes.ops.basis import cheby, cheby_dx, make_grid
 
         G = 6
         grid = make_grid(G)
@@ -158,7 +158,7 @@ class TestChebyBasis:
         FourierKAN-style variant is a drop-in on the XLA path)."""
         import optax
 
-        from kanodes_tpu.models import KANChain
+        from kanodes.models import KANChain
 
         chain = KANChain.mlp_like([1, 4, 1], grid_len=7, basis="fourier")
         params = chain.init(jax.random.PRNGKey(0))
@@ -187,7 +187,7 @@ class TestChebyBasis:
         polynomial-basis KAN variant is a drop-in on the XLA path)."""
         import optax
 
-        from kanodes_tpu.models import KANChain
+        from kanodes.models import KANChain
 
         chain = KANChain.mlp_like([1, 4, 1], grid_len=6, basis="cheby")
         params = chain.init(jax.random.PRNGKey(0))

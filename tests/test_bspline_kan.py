@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kanodes_tpu.models.bspline import BSplineKAN, BSplineKANChain
+from kanodes.models.bspline import BSplineKAN, BSplineKANChain
 
 
 @pytest.fixture
@@ -29,7 +29,7 @@ def test_shapes_and_counts(layer, lparams):
 def test_curve2coeff_roundtrip(layer, lparams):
     """Fitting values produced by known coefficients recovers them (the
     lstsq system is exactly determined on enough samples)."""
-    from kanodes_tpu.ops import basis as B
+    from kanodes.ops import basis as B
     grid = lparams["grid"]
     key = jax.random.PRNGKey(1)
     coeff_true = jax.random.normal(key, (2, 8, 10))
@@ -85,7 +85,7 @@ def test_chain_and_reg(layer):
 def test_ode_integration_with_bspline_kan():
     """The torchdiffeq-flavor LV setup (predator_prey.py:101,142):
     B-spline KAN chain as neural-ODE RHS."""
-    from kanodes_tpu.ode import odeint_fixed
+    from kanodes.ode import odeint_fixed
     chain = BSplineKANChain([2, 10, 2], grid_size=5)
     params = chain.init(jax.random.PRNGKey(5))
 

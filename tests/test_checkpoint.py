@@ -6,15 +6,14 @@ post-hoc argmin model selection (`LV_driver_KANODE.jl:252-272`,
 (`:146-160`).
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import kanodes_tpu.train.checkpoint as ckpt_mod
-from kanodes_tpu.train.checkpoint import (Checkpointer, TrainState,
-                                          select_from_history)
-from kanodes_tpu.train.loop import TrainConfig, train
+import kanodes.train.checkpoint as ckpt_mod
+from kanodes.train.checkpoint import (Checkpointer, TrainState,
+                                      select_from_history)
+from kanodes.train.loop import TrainConfig, train
 
 
 def _state(step, seed=0):
@@ -125,34 +124,10 @@ def test_chunk_cache_respects_new_lr():
     assert float(outL["loss_history"][-1]) < float(out1["loss_history"][-1])
 
 
-def test_aot_key_tracks_constants_and_structure():
-    """The AOT executable-cache key must change when a baked-in closure
-    constant changes (stale-hit safety) and be deterministic for
-    identical programs."""
-    from kanodes_tpu.train.loop import _aot_key
-    data1 = jnp.asarray([1.0, 2.0, 3.0])
-    data2 = jnp.asarray([1.0, 2.0, 3.5])
-
-    def make(data):
-        def f(x):
-            return jnp.sum((x - data) ** 2)
-        return jax.jit(f)
-
-    x = jnp.zeros(3)
-    k1a = _aot_key(make(data1), x)
-    k1b = _aot_key(make(data1), x)
-    k2 = _aot_key(make(data2), x)
-    assert k1a == k1b                 # deterministic
-    assert k1a != k2                  # constants are part of the key
-    # different input avals -> different key
-    k3 = _aot_key(make(data1[:2]), jnp.zeros(2))
-    assert k3 != k1a
-
-
 def test_chunk_cache_key_includes_structure():
     """Different chunk shapes (eval_every) and optimizers must NOT share
     a cached chunk."""
-    from kanodes_tpu.train.loop import _RUN_CHUNK_CACHE
+    from kanodes.train.loop import _RUN_CHUNK_CACHE
     loss_fn, eval_fn, params = _quad_problem()
     _RUN_CHUNK_CACHE.clear()  # the cache is capped at 16; a full cache
     n0 = len(_RUN_CHUNK_CACHE)  # (earlier tests) would mask key growth

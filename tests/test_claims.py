@@ -2,13 +2,13 @@
 
 Guards the README/EXPERIMENTS tables against doc rot — every registered
 headline number is re-derived from its committed artifact
-(`kanodes_tpu/diag/claims.py`); the slow tier additionally reloads the
+(`kanodes/diag/claims.py`); the slow tier additionally reloads the
 deliverable param files and recomputes the record MSEs from scratch.
 """
 
 import pytest
 
-from kanodes_tpu.diag import claims
+from kanodes.diag import claims
 
 
 def test_shallow_claims_verified():

@@ -1,10 +1,15 @@
-"""Unified CLI dispatcher (`python -m kanodes_tpu <command>`)."""
+"""Unified CLI dispatcher (`python -m kanodes <command>`)."""
 
+import importlib
 import json
+import os
+import pathlib
+import subprocess
+import sys
 
 import pytest
 
-from kanodes_tpu import __main__ as cli
+from kanodes import __main__ as cli
 
 
 def test_help_lists_every_command(capsys):
@@ -34,7 +39,7 @@ def test_module_command_dispatch(monkeypatch):
 
     monkeypatch.setattr(cli.runpy, "run_module", fake_run_module)
     assert cli.main(["lv", "--iters=100", "--restart"]) == 0
-    assert calls["module"] == "kanodes_tpu.experiments.lv"
+    assert calls["module"] == "kanodes.experiments.lv"
     assert calls["run_name"] == "__main__"
     assert calls["argv"][1:] == ["--iters=100", "--restart"]
 
@@ -63,7 +68,32 @@ def test_gates_command_end_to_end(tmp_path, capsys):
 
 
 def test_export_command_resolves():
-    from kanodes_tpu.deploy.__main__ import main as export_main
+    from kanodes.deploy.__main__ import main as export_main
     path, attr, _ = cli.FUNC_COMMANDS["export"]
     mod = __import__(path, fromlist=[attr])
     assert getattr(mod, attr) is export_main
+
+
+# the package's former name: a directory next to `kanodes` that aliases it
+_ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORMER_NAME = next(p.name for p in _ROOT.iterdir()
+                   if p.name.startswith("kanodes_")
+                   and (p / "__init__.py").is_file())
+
+
+@pytest.mark.parametrize("sub", ["experiments.lv", "models.kdense",
+                                 "ops.rk_fused", "diag.claims"])
+def test_former_name_aliases_the_same_modules(sub):
+    """`import <former>.x` returns the very module `kanodes.x` is, so
+    classes and registries exist once."""
+    old = importlib.import_module(f"{FORMER_NAME}.{sub}")
+    assert old is importlib.import_module(f"kanodes.{sub}")
+
+
+def test_former_name_runs_the_cli():
+    out = subprocess.run([sys.executable, "-m", FORMER_NAME, "--help"],
+                         capture_output=True, text=True, cwd=_ROOT,
+                         env=dict(os.environ, JAX_PLATFORMS="cpu"),
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "usage: python -m kanodes" in out.stdout

@@ -6,9 +6,9 @@ import jax
 import numpy as np
 import pytest
 
-from kanodes_tpu.experiments.lv import LVConfig, run
-from kanodes_tpu.train.config import (override_from_args, override_from_env,
-                                      describe)
+from kanodes.experiments.lv import LVConfig, run
+from kanodes.train.config import (override_from_args, override_from_env,
+                                  describe)
 
 
 def test_override_from_args():

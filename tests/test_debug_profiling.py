@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kanodes_tpu.utils.debug import (check_finite, validate_finite,
-                                     nan_guard)
-from kanodes_tpu.diag.profiling import (StepTimer, rhs_evals_per_iteration)
+from kanodes.utils.debug import (check_finite, validate_finite,
+                                 nan_guard)
+from kanodes.diag.profiling import (StepTimer, rhs_evals_per_iteration)
 
 
 def test_check_finite():

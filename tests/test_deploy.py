@@ -5,13 +5,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kanodes_tpu.deploy import (ServingArtifact, export_graybox_trajectory,
-                                export_rhs, export_trajectory)
-from kanodes_tpu.models import KDense
-from kanodes_tpu.models.core import Chain
-from kanodes_tpu.ode import odeint_fixed
-from kanodes_tpu.pde import datagen
-from kanodes_tpu.utils.precision import matmul_precision
+from kanodes.deploy import (ServingArtifact, export_graybox_trajectory,
+                            export_rhs, export_trajectory)
+from kanodes.models import KDense
+from kanodes.models.core import Chain
+from kanodes.ode import odeint_fixed
+from kanodes.pde import datagen
+from kanodes.utils.precision import matmul_precision
 
 
 @pytest.fixture
@@ -118,11 +118,11 @@ def test_trajectory_batched_symbolic(lv_chain, tmp_path):
 def test_pinn_field_export(tmp_path):
     """The generic field exporter serves the KAN-PINN displacement
     potential (same Layer protocol as the ODE models)."""
-    from kanodes_tpu.pinn.model import KANPINN
+    from kanodes.pinn.model import KANPINN
 
     model = KANPINN(widths=(2, 8, 1), n_basis=6)
     params = model.init(jax.random.PRNGKey(3))
-    from kanodes_tpu.deploy import export_field
+    from kanodes.deploy import export_field
     art = export_field(model, params)
     assert art.meta["kind"] == "field"
     p = str(tmp_path / "pinn.kexp")
@@ -136,11 +136,11 @@ def test_pinn_field_export(tmp_path):
 
 
 def test_multiplatform_payload(lv_chain):
-    """Default export lowers for BOTH cpu and tpu into one artifact, so
-    a dev-box export runs on the serving fleet unchanged."""
+    """Default export lowers for BOTH cpu and cuda into one artifact, so
+    a dev-box export runs on the serving GPUs unchanged."""
     model, params = lv_chain
     art = export_rhs(model, params, batch=2)
-    assert set(art.platforms) == {"cpu", "tpu"}
+    assert set(art.platforms) == {"cpu", "cuda"}
 
 
 def test_load_rejects_non_artifact(tmp_path):
@@ -153,8 +153,8 @@ def test_load_rejects_non_artifact(tmp_path):
 
 def test_spec_roundtrip_all_kinds():
     """spec_of -> model_from_spec rebuilds an equivalent model."""
-    from kanodes_tpu.deploy.spec import model_from_spec, spec_of
-    from kanodes_tpu.models import MLP, BSplineKANChain, KANChain
+    from kanodes.deploy.spec import model_from_spec, spec_of
+    from kanodes.models import MLP, BSplineKANChain, KANChain
 
     for model in (
             KANChain.mlp_like([2, 7, 2], grid_len=5, basis="rswaf",
@@ -172,12 +172,12 @@ def test_spec_roundtrip_all_kinds():
 
 
 def test_checkpoint_to_artifact_cli(tmp_path):
-    """Train tiny LV w/ checkpoints -> `python -m kanodes_tpu.deploy`
+    """Train tiny LV w/ checkpoints -> `python -m kanodes.deploy`
     export -> artifact matches live inference on the checkpointed best
     params (the full train -> checkpoint -> deploy path)."""
-    from kanodes_tpu.deploy.__main__ import main as deploy_main
-    from kanodes_tpu.experiments import lv
-    from kanodes_tpu.train.checkpoint import Checkpointer
+    from kanodes.deploy.__main__ import main as deploy_main
+    from kanodes.experiments import lv
+    from kanodes.train.checkpoint import Checkpointer
 
     ckdir = str(tmp_path / "ck")
     cfg = lv.LVConfig(iters=30, eval_every=10, solve_mode="fixed")
@@ -206,9 +206,9 @@ def test_checkpoint_to_artifact_cli(tmp_path):
 
 def test_cli_requires_spec_when_missing(tmp_path):
     """Old checkpoints without extra['model_spec'] get a clear error."""
-    from kanodes_tpu.deploy.__main__ import main as deploy_main
-    from kanodes_tpu.models import KANChain
-    from kanodes_tpu.train.checkpoint import Checkpointer, TrainState
+    from kanodes.deploy.__main__ import main as deploy_main
+    from kanodes.models import KANChain
+    from kanodes.train.checkpoint import Checkpointer, TrainState
 
     model = KANChain.mlp_like([2, 4, 2], grid_len=5)
     params = model.init(jax.random.PRNGKey(0))
@@ -225,10 +225,10 @@ def test_pinn_checkpoint_field_export(tmp_path):
     without an explicit --spec."""
     import dataclasses
 
-    from kanodes_tpu.deploy.__main__ import main as deploy_main
-    from kanodes_tpu.pinn.model import KANPINN
-    from kanodes_tpu.pinn.train import PINNConfig
-    from kanodes_tpu.train.checkpoint import Checkpointer, TrainState
+    from kanodes.deploy.__main__ import main as deploy_main
+    from kanodes.pinn.model import KANPINN
+    from kanodes.pinn.train import PINNConfig
+    from kanodes.train.checkpoint import Checkpointer, TrainState
 
     cfg = PINNConfig(widths=(2, 8, 1), n_basis=4, trainable_centers=True)
     model = KANPINN(cfg.widths, cfg.n_basis, cfg.trainable_centers)
@@ -255,7 +255,7 @@ def test_pinn_checkpoint_field_export(tmp_path):
 def test_trajectory_rejects_non_square_model():
     """A field network (in_dims != out_dims) must not silently
     broadcast inside the integrator."""
-    from kanodes_tpu.pinn.model import KANPINN
+    from kanodes.pinn.model import KANPINN
 
     model = KANPINN(widths=(2, 6, 1), n_basis=4)
     params = model.init(jax.random.PRNGKey(0))
@@ -264,9 +264,9 @@ def test_trajectory_rejects_non_square_model():
 
 
 def test_spec_rejects_heterogeneous_and_callable():
-    from kanodes_tpu.deploy.spec import spec_of
-    from kanodes_tpu.models import KANChain
-    from kanodes_tpu.models.core import Chain
+    from kanodes.deploy.spec import spec_of
+    from kanodes.models import KANChain
+    from kanodes.models.core import Chain
 
     het = Chain(KDense(2, 4, 5), KDense(4, 2, 7))
     het2 = KANChain(*het.layers)
@@ -283,8 +283,8 @@ def test_cli_npy_params_path(tmp_path):
     artifacts (no Checkpointer directory needed)."""
     import json as _json
 
-    from kanodes_tpu.deploy.__main__ import main as deploy_main
-    from kanodes_tpu.models import KANChain
+    from kanodes.deploy.__main__ import main as deploy_main
+    from kanodes.models import KANChain
 
     model = KANChain.mlp_like([3, 4, 3], grid_len=5,
                               normalizer="softsign")

@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kanodes_tpu.diag.metrics import (trajectory_metrics, horizon_error,
-                                      stability_check, finite_grid_check,
-                                      MetricsLogger)
-from kanodes_tpu.diag.gates import GateThresholds, evaluate, report
+from kanodes.diag.metrics import (trajectory_metrics, horizon_error,
+                                  stability_check, finite_grid_check,
+                                  MetricsLogger)
+from kanodes.diag.gates import GateThresholds, evaluate, report
 
 
 def test_trajectory_metrics():
@@ -69,7 +69,7 @@ def test_gates_pass_case():
 
 class TestPlots:
     def test_loss_curves_and_trend(self, tmp_path):
-        from kanodes_tpu.diag.plots import loss_curves, trend_plot
+        from kanodes.diag.plots import loss_curves, trend_plot
         loss_curves({"kan": np.geomspace(1, 1e-5, 100)},
                     str(tmp_path / "l.png"))
         assert (tmp_path / "l.png").exists()
@@ -79,8 +79,8 @@ class TestPlots:
         assert (tmp_path / "t.png").exists()
 
     def test_lv_reconstruction_and_activations(self, tmp_path):
-        from kanodes_tpu.diag.plots import lv_reconstruction, activation_grid
-        from kanodes_tpu.models import KANChain
+        from kanodes.diag.plots import lv_reconstruction, activation_grid
+        from kanodes.models import KANChain
         ts = np.linspace(0, 14, 50)
         truth = np.stack([np.sin(ts) + 2, np.cos(ts) + 2], 1)
         lv_reconstruction(ts, truth, truth * 1.01, 3.5,
@@ -92,7 +92,7 @@ class TestPlots:
         assert (tmp_path / "a.png").exists()
 
     def test_pde_contour(self, tmp_path):
-        from kanodes_tpu.diag.plots import pde_contour
+        from kanodes.diag.plots import pde_contour
         pde_contour(np.linspace(0, 1, 11), np.linspace(-1, 1, 41),
                     np.random.default_rng(0).normal(size=(11, 41)),
                     str(tmp_path / "c.png"))
@@ -100,7 +100,7 @@ class TestPlots:
 
 
 def test_checkpointer_roundtrip(tmp_path):
-    from kanodes_tpu.train.checkpoint import Checkpointer, TrainState
+    from kanodes.train.checkpoint import Checkpointer, TrainState
     ck = Checkpointer(str(tmp_path / "ckpt"), keep=2)
     params = {"w": jnp.arange(4.0)}
     for step in (10, 20, 30):
@@ -122,7 +122,7 @@ def test_gates_cli(tmp_path):
             "nonfinite_grid_points": 0}
     p = tmp_path / "diag.json"
     p.write_text(json.dumps(diag))
-    from kanodes_tpu.diag.gates import main
+    from kanodes.diag.gates import main
     assert main([str(p)]) == 0
     diag["best_val"] = 1e9
     p.write_text(json.dumps(diag))
@@ -131,7 +131,7 @@ def test_gates_cli(tmp_path):
 
 def test_symbolic_error_contours(tmp_path):
     import jax.numpy as jnp
-    from kanodes_tpu.diag.plots import symbolic_error_contours
+    from kanodes.diag.plots import symbolic_error_contours
 
     def kan_rhs(pts):
         return jnp.stack([1.49 * pts[:, 0] - pts[:, 0] * pts[:, 1],
@@ -152,9 +152,9 @@ def test_contour_compare_reference_panels(tmp_path):
     mlp/symb/symb_comp errors per dim) are produced, stats returned."""
     import jax
     import jax.numpy as jnp
-    from kanodes_tpu.diag.plots import contour_compare
-    from kanodes_tpu.models import KANChain
-    from kanodes_tpu.models.mlp import MLP
+    from kanodes.diag.plots import contour_compare
+    from kanodes.models import KANChain
+    from kanodes.models.mlp import MLP
 
     kan = KANChain.mlp_like([2, 3, 2], grid_len=4)
     pk = kan.init(jax.random.PRNGKey(0))
@@ -185,10 +185,10 @@ def test_activation_symbolic_overlays_reference_names(tmp_path):
     the reference names, plus combined overlay panels."""
     import jax
     import jax.numpy as jnp
-    from kanodes_tpu.diag.plots import activation_symbolic_overlays
-    from kanodes_tpu.models import KANChain
-    from kanodes_tpu.symbolic.engine import SymbolicFit
-    from kanodes_tpu.symbolic.fit import EdgeEquation
+    from kanodes.diag.plots import activation_symbolic_overlays
+    from kanodes.models import KANChain
+    from kanodes.symbolic.engine import SymbolicFit
+    from kanodes.symbolic.fit import EdgeEquation
 
     chain = KANChain.mlp_like([2, 3, 2], grid_len=4)
     params = chain.init(jax.random.PRNGKey(0))
@@ -212,9 +212,9 @@ def test_activation_symbolic_overlays_reference_names(tmp_path):
 def test_compose_edge_equations():
     """Per-edge symbolic composition reproduces the layer-sum semantics
     (symb_comp_getter, Plotting_symbolic.jl:96-140)."""
-    from kanodes_tpu.symbolic.engine import SymbolicFit
-    from kanodes_tpu.symbolic.fit import (EdgeEquation,
-                                          compose_edge_equations)
+    from kanodes.symbolic.engine import SymbolicFit
+    from kanodes.symbolic.fit import (EdgeEquation,
+                                      compose_edge_equations)
 
     # layer 1: h_j = sum_i f_ij(x_i) with f_ij(x) = (j+1)*x for i=0,
     # 0 for i=1; layer 2: y_o = sum_j g_jo(h_j), g_jo(h) = h

@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from kanodes_tpu.models import KANChain
-from kanodes_tpu.utils.export import (export_forward, load_forward,
-                                      export_rollout)
+from kanodes.models import KANChain
+from kanodes.utils.export import (export_forward, load_forward,
+                                  export_rollout)
 
 
 def test_forward_roundtrip():
@@ -30,7 +30,7 @@ def test_rollout_roundtrip():
     f = load_forward(blob)
     out = f(params, u0)
     assert out.shape == (6, 2)
-    from kanodes_tpu.ode import odeint_fixed
+    from kanodes.ode import odeint_fixed
 
     def rhs(t, u, p):
         return chain.apply(p, u)
@@ -45,9 +45,9 @@ def test_mat_results_roundtrip(tmp_path):
     """save_mat_results/load_mat_results round-trip the reference's
     result schema (LV_driver_KANODE.jl:252-272): p_list rows reload and
     reshape back to the exact params pytrees."""
-    from kanodes_tpu.utils.matio import (save_mat_results,
-                                         load_mat_results,
-                                         params_to_row, row_to_params)
+    from kanodes.utils.matio import (save_mat_results,
+                                     load_mat_results,
+                                     params_to_row, row_to_params)
 
     chain = KANChain.mlp_like([2, 5, 2], grid_len=5)
     ps = [chain.init(jax.random.PRNGKey(i)) for i in range(3)]
@@ -81,8 +81,8 @@ def test_mat_results_roundtrip(tmp_path):
 def test_lv_run_to_mat(tmp_path):
     """The lv.run() packager writes a file the loader (and therefore the
     reference plotting flow) can consume."""
-    from kanodes_tpu.experiments import lv
-    from kanodes_tpu.utils.matio import lv_run_to_mat, load_mat_results
+    from kanodes.experiments import lv
+    from kanodes.utils.matio import lv_run_to_mat, load_mat_results
 
     cfg = lv.LVConfig(iters=20, eval_every=10, layer_width=4,
                       record_history=True)

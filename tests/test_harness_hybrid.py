@@ -5,14 +5,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kanodes_tpu.experiments.lv import LVConfig, make_data
-from kanodes_tpu.models.bspline import BSplineKAN, BSplineKANChain
-from kanodes_tpu.models.hybrid import DataNormalizer, HybridKANMLP
-from kanodes_tpu.sparsify.edge_prune import (edge_magnitudes, prune_edges,
-                                             prune_chain_edges)
-from kanodes_tpu.train.harness import (HarnessConfig, time_ordered_split,
-                                       curriculum_train, evaluate_model,
-                                       robustness_test, compare_models)
+from kanodes.experiments.lv import LVConfig, make_data
+from kanodes.models.bspline import BSplineKAN, BSplineKANChain
+from kanodes.models.hybrid import DataNormalizer, HybridKANMLP
+from kanodes.sparsify.edge_prune import (edge_magnitudes, prune_edges,
+                                         prune_chain_edges)
+from kanodes.train.harness import (HarnessConfig, time_ordered_split,
+                                   curriculum_train, evaluate_model,
+                                   robustness_test, compare_models)
 
 
 def test_hybrid_blend():
@@ -61,7 +61,7 @@ def test_edge_pruning():
 
 @pytest.fixture(scope="module")
 def lv_setup():
-    from kanodes_tpu.models import KANChain
+    from kanodes.models import KANChain
     cfg = LVConfig()
     data = make_data(cfg)
     model = KANChain.mlp_like([2, 10, 2], grid_len=5)
@@ -115,7 +115,7 @@ def test_test_horizon_excludes_seeded_ic(lv_setup):
 
     # reproduce by hand: integrate from X_tr[-1] over [ts_tr[-1], *ts_te],
     # score only the test rows
-    from kanodes_tpu.ode import odeint_fixed
+    from kanodes.ode import odeint_fixed
     ts_roll = jnp.asarray(np.concatenate([ts_tr[-1:], ts_te]))
     pred = odeint_fixed(lambda t, u, p: model.apply(p, u),
                         jnp.asarray(X_tr[-1]), ts_roll, params,
@@ -130,7 +130,7 @@ def test_test_horizon_excludes_seeded_ic(lv_setup):
 
 
 def test_ensemble_seeds_cpu():
-    from kanodes_tpu.experiments.sweep import ensemble_seeds
+    from kanodes.experiments.sweep import ensemble_seeds
     res = ensemble_seeds(n=4, iters=80)
     assert res["final_losses"].shape == (4,)
     assert np.isfinite(res["final_losses"]).all()

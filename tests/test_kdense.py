@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kanodes_tpu.models import KDense, KDense1, KANChain, MLP
-from kanodes_tpu.models.core import count_params
-from kanodes_tpu.ops import basis as B
+from kanodes.models import KDense, KDense1, KANChain, MLP
+from kanodes.models.core import count_params
+from kanodes.ops import basis as B
 
 
 def test_param_count_matches_reference():

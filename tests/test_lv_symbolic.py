@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from kanodes_tpu.experiments.lv_symbolic import (SymbolicPipelineConfig,
-                                                 run_pipeline)
+from kanodes.experiments.lv_symbolic import (SymbolicPipelineConfig,
+                                             run_pipeline)
 
 
 @pytest.mark.slow

@@ -18,12 +18,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kanodes_tpu.experiments.lv import (LVConfig, make_data, make_model,
-                                        make_ode_fns)
-from kanodes_tpu.train.checkpoint import (select_from_history,
-                                          select_members_from_history)
-from kanodes_tpu.train.loop import (TrainConfig, init_stacked,
-                                    member_params, train)
+from kanodes.experiments.lv import (LVConfig, make_data, make_model,
+                                    make_ode_fns)
+from kanodes.train.checkpoint import (select_from_history,
+                                      select_members_from_history)
+from kanodes.train.loop import (TrainConfig, init_stacked,
+                                member_params, train)
 
 TARGETS = jnp.asarray([[1.0, -2.0, 0.5],
                        [0.0, 3.0, -1.0],
@@ -100,7 +100,7 @@ def test_select_members_rejects_scalar_history():
 @pytest.mark.parametrize("impl", ["xla", "fused"])
 def test_lv_multiseed_matches_sequential(impl):
     """3 LV seeds trained as one vector program == 3 sequential runs
-    (same shooting objective), through both the XLA and the fused Pallas
+    (same shooting objective), through both the XLA and the fused Triton
     path (interpret mode on CPU; the vmap lifts into the kernel grid)."""
     cfg = LVConfig(solve_mode="shooting", impl=impl, lr=3e-3)
     data = make_data(cfg)
@@ -184,7 +184,7 @@ def test_explicit_stacked_kwarg():
 def test_stacked_lr_scales_parity():
     """Per-member learning rates in stacked vector mode: member s
     follows the exact Adam trajectory of a scalar run at lr*factor_s."""
-    from kanodes_tpu.train.loop import stacked_lr_scales
+    from kanodes.train.loop import stacked_lr_scales
     cfg = TrainConfig(lr=0.2, iters=50, eval_every=50)
     p0 = jnp.stack([jnp.zeros(3), jnp.ones(3), -jnp.ones(3)])
     factors = jnp.asarray([1.0, 0.1, 2.5])

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kanodes_tpu.ode import odeint, odeint_fixed
-from kanodes_tpu.ode.integrate import StepController
+from kanodes.ode import odeint, odeint_fixed
+from kanodes.ode.integrate import StepController
 
 
 # -- analytic problems -------------------------------------------------------
@@ -477,7 +477,7 @@ def test_odeint_adjoint_params_subset():
     """torchdiffeq adjoint_params parity (predator_prey_adjoint.py:132-142):
     leaves masked False get exactly-zero cotangents; kept leaves match
     the unmasked gradient."""
-    from kanodes_tpu.ode import odeint_adjoint
+    from kanodes.ode import odeint_adjoint
     ts = jnp.linspace(0.0, 1.0, 4)
 
     def rhs(t, y, p):

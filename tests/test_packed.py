@@ -14,13 +14,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kanodes_tpu.experiments.lv import (LVConfig, make_data, make_model,
-                                        make_ode_fns)
-from kanodes_tpu.models.packed import (apply_mask, block_mask,
-                                       extract_member, member_mean,
-                                       pack_chain, pack_params,
-                                       tile_state)
-from kanodes_tpu.train.loop import TrainConfig, train
+from kanodes.experiments.lv import (LVConfig, make_data, make_model,
+                                    make_ode_fns)
+from kanodes.models.packed import (apply_mask, block_mask,
+                                   extract_member, member_mean,
+                                   pack_chain, pack_params,
+                                   tile_state)
+from kanodes.train.loop import TrainConfig, train
 
 S = 3
 
@@ -62,36 +62,45 @@ def test_pack_extract_roundtrip():
                                       0.0)
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
-def test_packed_forward_is_member_independent(impl):
+@pytest.mark.parametrize("batch", [(7,), ()])
+def test_packed_forward_is_member_independent(batch):
     """packed_chain(tile(x)) == concat of member forwards, and member s
-    output is unaffected by other members' inputs."""
+    output is unaffected by other members' inputs (batched rows and a
+    single state)."""
     model = make_model(LVConfig())
     members = _members(model, scale=1.0)
     packed_model = pack_chain(model, S)
     packed = pack_params(model, members)
-    x = jax.random.uniform(jax.random.PRNGKey(9), (7, 2), minval=0.1,
-                           maxval=2.0)
-    y_packed = packed_model.apply(packed, tile_state(x, S), impl=impl)
+    x = jax.random.uniform(jax.random.PRNGKey(9), batch + (2,),
+                           minval=0.1, maxval=2.0)
+    y_packed = packed_model.apply(packed, tile_state(x, S))
     for s in range(S):
-        y_ref = model.apply(members[s], x, impl=impl)
-        np.testing.assert_allclose(y_packed[:, 2 * s:2 * s + 2], y_ref,
+        y_ref = model.apply(members[s], x)
+        np.testing.assert_allclose(y_packed[..., 2 * s:2 * s + 2], y_ref,
                                    rtol=2e-5, atol=1e-6)
     # independence: perturb member 0's input slice only
-    xt = tile_state(x, S).at[:, 0:2].set(-1.0)
-    y2 = packed_model.apply(packed, xt, impl=impl)
-    np.testing.assert_array_equal(y2[:, 2:], y_packed[:, 2:])
+    xt = tile_state(x, S).at[..., 0:2].set(-1.0)
+    y2 = packed_model.apply(packed, xt)
+    np.testing.assert_array_equal(y2[..., 2:], y_packed[..., 2:])
 
 
-@pytest.mark.parametrize("impl,mode", [("xla", "shooting"),
-                                       ("fused", "shooting"),
-                                       ("fused_wide", "shooting"),
-                                       ("xla", "fixed"),
-                                       ("fused", "fixed"),
-                                       ("fused_wide", "fixed")])
-def test_packed_lv_loss_and_grads_match_members(impl, mode):
+@pytest.mark.parametrize("impl,mode,substeps", [("xla", "shooting", 1),
+                                                ("fused", "shooting", 1),
+                                                ("fused", "shooting", 2),
+                                                ("xla", "fixed", 1),
+                                                ("fused", "fixed", 1),
+                                                ("fused", "fixed", 2)])
+def test_packed_lv_loss_and_grads_match_members(monkeypatch, impl, mode,
+                                                substeps):
+    if impl == "fused":
+        # the width rule sends packed chains to XLA and single members to
+        # the kernels; force the kernels for both so that the kernels'
+        # handling of block-diagonal packed chains is what is compared
+        from kanodes.ops import rk_fused
+        monkeypatch.setattr(rk_fused, "kernel_wins", lambda spec: True)
     (cfg, data, model, members, packed_model, packed,
-     pdata) = _lv_setup(solve_mode=mode, impl=impl, segment_len=2)
+     pdata) = _lv_setup(solve_mode=mode, impl=impl, segment_len=2,
+                        substeps=substeps)
     loss_s, eval_s, _ = make_ode_fns(cfg, packed_model, pdata,
                                      reduce_fn=member_mean(S))
     mask = block_mask(model, S)
@@ -149,23 +158,20 @@ def test_packed_train_matches_sequential():
             np.testing.assert_allclose(a, b, rtol=2e-4, atol=1e-7)
 
 
-@pytest.mark.parametrize("impl,mode,wide", [("xla", "shooting", None),
-                                            ("fused", "fixed", None),
-                                            ("fused", "shooting", True)])
-def test_packed_surrogate_loss_matches_members(impl, mode, wide):
+@pytest.mark.parametrize("impl,mode", [("xla", "shooting"),
+                                       ("fused", "fixed"),
+                                       ("fused", "shooting")])
+def test_packed_surrogate_loss_matches_members(impl, mode):
     """The reduce_fn hook generalizes packing to the PDE surrogates:
     a 2-member packed Burgers chain reproduces each member's own loss
-    and gradients (small 11-point grid). wide=True forces the
-    grid-sliced wide-kernel flavor (`SurrogateConfig.wide_kernels`) —
-    the packed-ensemble production path (first-load mitigation,
-    artifacts/packed_load_ab.json)."""
-    from kanodes_tpu.experiments.pde_surrogate import (SurrogateConfig,
-                                                       make_data,
-                                                       make_fns,
-                                                       make_model)
+    and gradients (small 11-point grid)."""
+    from kanodes.experiments.pde_surrogate import (SurrogateConfig,
+                                                   make_data,
+                                                   make_fns,
+                                                   make_model)
     Sp = 2
     cfg = SurrogateConfig(problem="burgers", impl=impl, solve_mode=mode,
-                          substeps=4, data_dx=0.2, wide_kernels=wide)
+                          substeps=4, data_dx=0.2)
     data = make_data(cfg)
     model = make_model(cfg, data)
     members = [jax.tree_util.tree_map(lambda x: 1e-2 * x,
@@ -201,7 +207,7 @@ def test_odeint_members_independent_controllers():
     member's controller must walk its own dt sequence (different step
     counts) and still match that member's sequential adaptive solve and
     the closed form."""
-    from kanodes_tpu.ode import odeint, odeint_members
+    from kanodes.ode import odeint, odeint_members
 
     lam = jnp.asarray([0.5, 50.0])
 
@@ -280,7 +286,7 @@ def test_adaptive_reduce_fn_requires_n_members():
 def test_member_lr_scales_packed_parity():
     """Per-member learning rates on the homogeneous packed layout:
     member s's Adam trajectory equals a scalar run at lr * factor_s."""
-    from kanodes_tpu.models.packed import member_lr_scales
+    from kanodes.models.packed import member_lr_scales
     (cfg, data, model, members, packed_model, packed,
      pdata) = _lv_setup(solve_mode="shooting", impl="xla")
     loss_s, eval_s, _ = make_ode_fns(cfg, packed_model, pdata,
@@ -306,7 +312,7 @@ def test_member_lr_scales_packed_parity():
 
 
 def _hetero_setup(widths=(4, 6), grids=(3, 5)):
-    from kanodes_tpu.models.packed import HeteroPacked
+    from kanodes.models.packed import HeteroPacked
     cfgs = [LVConfig(layer_width=w, grid_size=g)
             for w, g in zip(widths, grids)]
     members = [make_model(c) for c in cfgs]
@@ -365,7 +371,7 @@ def test_hetero_pack_forward_and_grads():
 
 
 def test_hetero_rejects_mixed_basis():
-    from kanodes_tpu.models.packed import HeteroPacked
+    from kanodes.models.packed import HeteroPacked
     with pytest.raises(ValueError, match="basis"):
         HeteroPacked([make_model(LVConfig(basis="rbf")),
                       make_model(LVConfig(basis="iqf"))])
@@ -376,7 +382,7 @@ def test_packed_trend_sweep_matches_sequential_curriculum():
     the same curriculum run per member."""
     import dataclasses as dc
 
-    from kanodes_tpu.experiments.sweep import SweepPoint, packed_trend_sweep
+    from kanodes.experiments.sweep import SweepPoint, packed_trend_sweep
     pts = (SweepPoint("kan", layer_width=4, grid_size=3),
            SweepPoint("kan", layer_width=5, grid_size=5))
     out = packed_trend_sweep(pts, shooting_iters=30, seg4_iters=20,
@@ -390,7 +396,7 @@ def test_packed_trend_sweep_matches_sequential_curriculum():
                        grid_size=p.grid_size, impl="xla")
         data = make_data(cfg)
         model = make_model(cfg)
-        from kanodes_tpu.experiments.lv import init_params
+        from kanodes.experiments.lv import init_params
         params = init_params(cfg, model)
         for mode, seg, lr, iters in [("shooting", 1, 3e-3, 30),
                                      ("shooting", 4, 1e-3, 20),
@@ -411,7 +417,7 @@ def test_packed_trend_sweep_matches_sequential_curriculum():
 def test_packed_rejects_trainable_grid_and_vector_sparse():
     model = make_model(LVConfig())
     bad = dataclasses.replace(model.layers[0], trainable_grid=True)
-    from kanodes_tpu.models.kdense import KANChain
+    from kanodes.models.kdense import KANChain
     with pytest.raises(ValueError):
         pack_chain(KANChain(bad, model.layers[1]), 2)
     cfg = LVConfig(sparse_on=True)
@@ -421,9 +427,10 @@ def test_packed_rejects_trainable_grid_and_vector_sparse():
 
 
 def test_packed_adaptive_fused_impl_matches_xla():
-    """impl='fused' routes the packed adaptive solve through the
-    whole-loop per-member kernel (fused_adaptive_members_odeint);
-    losses, evals and gradients match the XLA odeint_members route."""
+    """impl='fused' in adaptive mode takes the XLA per-member controllers
+    (odeint_members) — the path that serves packed adaptive ensembles;
+    losses, evals and gradients match impl='xla', and off-block
+    gradients stay exactly zero."""
     (cfg, data, model, members, packed_model, packed,
      pdata) = _lv_setup(solve_mode="adaptive", impl="fused", max_steps=96)
     loss_f, eval_f, _ = make_ode_fns(cfg, packed_model, pdata,
@@ -440,7 +447,7 @@ def test_packed_adaptive_fused_impl_matches_xla():
     np.testing.assert_allclose(eval_f(mp), eval_x(mp), rtol=3e-5)
     gf = jax.grad(lambda p: jnp.sum(loss_f(apply_mask(mask, p))))(packed)
     gx = jax.grad(lambda p: jnp.sum(loss_x(apply_mask(mask, p))))(packed)
-    # off-block gradients stay exactly zero through the fused kernel
+    # off-block gradients stay exactly zero
     for m, gl in zip(jax.tree_util.tree_leaves(mask),
                      jax.tree_util.tree_leaves(gf)):
         np.testing.assert_array_equal(np.asarray(gl)[np.asarray(m) == 0],

@@ -11,12 +11,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from kanodes_tpu.experiments.lv import LVConfig, make_model
-from kanodes_tpu.models.packed import (HeteroPacked, block_mask,
-                                       member_ids, pack_chain,
-                                       pack_params, tile_state)
-from kanodes_tpu.train.packed_polish import (PackedPolishConfig,
-                                             polish_packed)
+from kanodes.experiments.lv import LVConfig, make_model
+from kanodes.models.packed import (HeteroPacked, block_mask,
+                                   member_ids, pack_chain,
+                                   pack_params, tile_state)
+from kanodes.train.packed_polish import (PackedPolishConfig,
+                                         polish_packed)
 
 CFG = PackedPolishConfig(iters=12, memory_size=5, linesearch_steps=15)
 
@@ -160,7 +160,7 @@ def test_member_ids_block_values():
 def test_packed_trend_sweep_polish_stage():
     """polish_iters wires the packed L-BFGS into the trend sweep: every
     member's polished train loss is no worse than its Adam endpoint."""
-    from kanodes_tpu.experiments.sweep import SweepPoint, packed_trend_sweep
+    from kanodes.experiments.sweep import SweepPoint, packed_trend_sweep
     pts = (SweepPoint("kan", layer_width=4, grid_size=3),
            SweepPoint("kan", layer_width=5, grid_size=5))
     out = packed_trend_sweep(pts, shooting_iters=30, seg4_iters=20,

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kanodes_tpu.models import KDense
-from kanodes_tpu.ode import odeint_fixed
-from kanodes_tpu.pde import operators as ops
-from kanodes_tpu.pde.graybox import GrayBoxRHS, FullSurrogateRHS
+from kanodes.models import KDense
+from kanodes.ode import odeint_fixed
+from kanodes.pde import operators as ops
+from kanodes.pde.graybox import GrayBoxRHS, FullSurrogateRHS
 
 
 def test_periodic_laplacian_matches_dense_matrix():
@@ -75,7 +75,7 @@ def _mesh_sp():
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 def test_sharded_laplacian_matches_local():
-    from kanodes_tpu.pde.sharded import sharded_laplacian_periodic
+    from kanodes.pde.sharded import sharded_laplacian_periodic
     mesh = _mesh_sp()
     n, dx = 64, 0.05
     u = jnp.asarray(np.random.default_rng(1).normal(size=n), jnp.float32)
@@ -88,7 +88,7 @@ def test_sharded_laplacian_matches_local():
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 @pytest.mark.slow
 def test_sharded_graybox_gradients_match_local():
-    from kanodes_tpu.pde.sharded import sharded_graybox_rhs
+    from kanodes.pde.sharded import sharded_graybox_rhs
     mesh = _mesh_sp()
     n, dx, D = 64, 1.0 / 64, 1e-3
     model = KDense(1, 1, grid_len=5)
@@ -118,8 +118,8 @@ def test_sharded_graybox_gradients_match_local():
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 def test_ensemble_train_step():
     import optax
-    from kanodes_tpu.parallel.sharding import (make_mesh, ensemble_train_step,
-                                               shard_leading)
+    from kanodes.parallel.sharding import (make_mesh, ensemble_train_step,
+                                           shard_leading)
     mesh = make_mesh(8, ("dp",))
     B = 8
     target = jnp.linspace(0.0, 7.0, B)
@@ -142,14 +142,14 @@ def test_ensemble_train_step():
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 @pytest.mark.parametrize("axes,shape", [
     (("dp",), (8,)),                    # flat 8-way DP
-    (("host", "chip"), (2, 4)),         # hierarchical DCN x ICI mesh
+    (("host", "chip"), (2, 4)),         # hierarchical host x chip mesh
 ])
 def test_dp_grad_parity(axes, shape):
     """Synchronized data parallelism: the sharded loss/gradients must
     equal the full-batch values exactly — on a flat mesh and on a
     hierarchical host x chip mesh (the multi-host DP shape)."""
-    from kanodes_tpu.parallel.sharding import (make_mesh, dp_value_and_grad,
-                                               dp_train_step)
+    from kanodes.parallel.sharding import (make_mesh, dp_value_and_grad,
+                                           dp_train_step)
     import optax
     mesh = make_mesh(8, axes, shape=shape)
     model = KDense(2, 2, grid_len=5)
@@ -192,7 +192,7 @@ def test_dp_grad_parity(axes, shape):
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 def test_sharded_dirichlet_laplacian_matches_local():
-    from kanodes_tpu.pde.sharded import sharded_laplacian_dirichlet
+    from kanodes.pde.sharded import sharded_laplacian_dirichlet
     mesh = _mesh_sp()
     n, dx = 64, 0.05
     u = jnp.asarray(np.random.default_rng(3).normal(size=n), jnp.float32)
@@ -208,7 +208,7 @@ def test_sharded_dirichlet_laplacian_matches_local():
 # ---------------------------------------------------------------------------
 
 def _tiny_surrogate_cfgs(mesh_shape):
-    from kanodes_tpu.experiments.pde_surrogate import SurrogateConfig
+    from kanodes.experiments.pde_surrogate import SurrogateConfig
     kw = dict(problem="schrodinger", data_dx=0.5, data_substeps=4,
               substeps=4, iters=4, eval_every=2, solve_mode="shooting")
     return SurrogateConfig(**kw), SurrogateConfig(**kw, mesh=mesh_shape)
@@ -224,8 +224,8 @@ def test_sharded_surrogate_objectives_match_single_device(mesh_shape):
     """Grid-TP (+ segment-dp) sharded losses/gradients/predictions equal
     the single-device path up to f32 reduction order, on a tiny
     Schrödinger instance (N=42 grid state, 8 shooting segments)."""
-    from kanodes_tpu.experiments import pde_surrogate as ps
-    from kanodes_tpu.pde.sharded import shard_chain_params
+    from kanodes.experiments import pde_surrogate as ps
+    from kanodes.pde.sharded import shard_chain_params
 
     cfg0, cfgm = _tiny_surrogate_cfgs(mesh_shape)
     data = ps.make_data(cfg0)
@@ -259,7 +259,7 @@ def test_sharded_surrogate_training_matches_single_device():
     """End-to-end `run(SurrogateConfig(mesh=...))`: a short sharded
     training run reproduces the single-device loss history and keeps the
     parameter shards on their devices."""
-    from kanodes_tpu.experiments import pde_surrogate as ps
+    from kanodes.experiments import pde_surrogate as ps
 
     cfg0, cfgm = _tiny_surrogate_cfgs((2, 2))
     out0 = ps.run(cfg0)
@@ -278,7 +278,7 @@ def test_sharded_source_training_matches_single_device():
     """`SourceConfig(sp=...)`: the halo-exchange gray-box driver path
     (ppermute stencil + local pointwise KAN) reproduces the dense-matrix
     single-device training losses."""
-    from kanodes_tpu.experiments import pde_source as srcmod
+    from kanodes.experiments import pde_source as srcmod
 
     kw = dict(problem="fisher_kpp", iters=4, eval_every=2,
               data_substeps=40)
@@ -292,7 +292,7 @@ def test_sharded_source_training_matches_single_device():
 # -- 2-D gray-box (beyond parity) ---------------------------------------------
 
 def test_laplacian_periodic_2d_matches_numpy_and_reduces_to_1d():
-    from kanodes_tpu.pde.datagen import _lap2d_periodic_np
+    from kanodes.pde.datagen import _lap2d_periodic_np
     rng = np.random.default_rng(3)
     u = rng.normal(size=(12, 12)).astype(np.float32)
     dx = 1.0 / 12
@@ -309,7 +309,7 @@ def test_laplacian_periodic_2d_matches_numpy_and_reduces_to_1d():
 
 
 def test_fisher_kpp_2d_truth_sane_and_consistent_with_1d():
-    from kanodes_tpu.pde import datagen
+    from kanodes.pde import datagen
     d = datagen.fisher_kpp_2d(n=16, n_save=5, substeps=60)
     assert d.X.shape == (5, 16, 16)
     assert np.isfinite(d.X).all()
@@ -318,7 +318,7 @@ def test_fisher_kpp_2d_truth_sane_and_consistent_with_1d():
     mass = d.X.mean(axis=(1, 2))
     assert (np.diff(mass) > 0).all()
     # a y-constant initial condition must evolve exactly like 1-D
-    from kanodes_tpu.utils.host_rk import rk4_dense
+    from kanodes.utils.host_rk import rk4_dense
     n, dx = 16, 1.0 / 16
     row = 0.3 + 0.2 * np.sin(2 * np.pi * np.arange(n) / n)
     lap1 = datagen._cyclic_lap(n, dx)
@@ -340,8 +340,8 @@ def test_fisher_kpp_2d_truth_sane_and_consistent_with_1d():
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 @pytest.mark.slow
 def test_sharded_graybox_2d_matches_local():
-    from kanodes_tpu.pde.operators import laplacian_periodic_2d
-    from kanodes_tpu.pde.sharded import sharded_graybox_rhs_2d
+    from kanodes.pde.operators import laplacian_periodic_2d
+    from kanodes.pde.sharded import sharded_graybox_rhs_2d
     mesh = _mesh_sp()
     n, dx, D = 16, 1.0 / 16, 0.01
     model = KDense(1, 1, grid_len=5)
@@ -378,7 +378,7 @@ def test_sharded_graybox_2d_matches_local():
 def test_sharded_source_2d_training_matches_single_device():
     """`SourceConfig(ndim=2, sp=...)`: ghost-ROW halo training reproduces
     the single-device 2-D losses."""
-    from kanodes_tpu.experiments import pde_source as srcmod
+    from kanodes.experiments import pde_source as srcmod
 
     kw = dict(problem="fisher_kpp", ndim=2, grid_n=16, iters=4,
               eval_every=2, data_substeps=40, substeps=4)
@@ -393,8 +393,8 @@ def test_sharded_2d_surrogate_matches_single_device():
     """Grid-TP sharding on the 2-D FULL-STATE surrogate chain
     ([n^2, H, n^2] on flattened fields): losses/grads match the
     single-device path — the TP story at the width where it matters."""
-    from kanodes_tpu.experiments import pde_surrogate as ps
-    from kanodes_tpu.pde.sharded import shard_chain_params
+    from kanodes.experiments import pde_surrogate as ps
+    from kanodes.pde.sharded import shard_chain_params
 
     kw = dict(problem="allen_cahn_2d", data_n=8, data_substeps=10,
               substeps=2, iters=4, eval_every=2, solve_mode="shooting")

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kanodes_tpu.pde import datagen
+from kanodes.pde import datagen
 
 
 class TestDatagen:
@@ -46,14 +46,14 @@ class TestDatagen:
 
 class TestSourceExperiments:
     def test_fkpp_short_training_descends(self):
-        from kanodes_tpu.experiments.pde_source import SourceConfig, run
+        from kanodes.experiments.pde_source import SourceConfig, run
         cfg = SourceConfig(problem="fisher_kpp", iters=300, eval_every=300)
         out = run(cfg)
         h = np.asarray(out["loss_history"])
         assert np.isfinite(h).all() and h[-1] < h[0]
 
     def test_allen_cahn_short_training_descends(self):
-        from kanodes_tpu.experiments.pde_source import SourceConfig, run
+        from kanodes.experiments.pde_source import SourceConfig, run
         cfg = SourceConfig(problem="allen_cahn", iters=300, eval_every=300,
                            substeps=2)
         out = run(cfg)
@@ -63,7 +63,7 @@ class TestSourceExperiments:
     def test_fkpp_2d_short_training_descends(self):
         """Beyond parity: 2-D Fisher-KPP gray-box (pointwise KAN +
         known 2-D diffusion) trains through the same driver."""
-        from kanodes_tpu.experiments.pde_source import SourceConfig, run
+        from kanodes.experiments.pde_source import SourceConfig, run
         cfg = SourceConfig(problem="fisher_kpp", ndim=2, grid_n=16,
                            iters=150, eval_every=150, data_substeps=60,
                            substeps=8)
@@ -72,8 +72,8 @@ class TestSourceExperiments:
         assert np.isfinite(h).all() and h[-1] < h[0]
 
     def test_recover_source_api(self):
-        from kanodes_tpu.experiments.pde_source import (SourceConfig, run,
-                                                        recover_source)
+        from kanodes.experiments.pde_source import (SourceConfig, run,
+                                                    recover_source)
         cfg = SourceConfig(problem="fisher_kpp", iters=100, eval_every=100)
         out = run(cfg)
         rec = recover_source(out, generations=30, seed=1)
@@ -84,8 +84,8 @@ class TestSurrogateExperiments:
     @pytest.mark.parametrize("problem,substeps", [("burgers", 10),
                                                   ("allen_cahn", 4)])
     def test_short_training_descends(self, problem, substeps):
-        from kanodes_tpu.experiments.pde_surrogate import (SurrogateConfig,
-                                                           run)
+        from kanodes.experiments.pde_surrogate import (SurrogateConfig,
+                                                       run)
         cfg = SurrogateConfig(problem=problem, iters=150, eval_every=150,
                               substeps=substeps)
         out = run(cfg)
@@ -94,9 +94,9 @@ class TestSurrogateExperiments:
 
     def test_rk4_solver_option(self):
         """rk_solver='rk4' (better imaginary-axis stability per stage
-        for stability-bound surrogates) trains through the fused path."""
-        from kanodes_tpu.experiments.pde_surrogate import (SurrogateConfig,
-                                                           run)
+        for stability-bound surrogates) trains through impl='fused'."""
+        from kanodes.experiments.pde_surrogate import (SurrogateConfig,
+                                                       run)
         cfg = SurrogateConfig(problem="burgers", iters=100, eval_every=100,
                               substeps=6, rk_solver="rk4", impl="fused",
                               solve_mode="shooting")
@@ -105,30 +105,33 @@ class TestSurrogateExperiments:
         assert np.isfinite(h).all() and h[-1] < h[0]
 
     def test_shooting_mode(self):
-        from kanodes_tpu.experiments.pde_surrogate import (SurrogateConfig,
-                                                           run)
+        from kanodes.experiments.pde_surrogate import (SurrogateConfig,
+                                                       run)
         cfg = SurrogateConfig(problem="burgers", iters=100, eval_every=100,
                               substeps=10, solve_mode="shooting")
         out = run(cfg)
         assert np.isfinite(np.asarray(out["loss_history"])).all()
 
-    @pytest.mark.parametrize("problem,substeps,rtol", [
-        ("burgers", 4, 2e-5),        # narrow fused path
-        pytest.param("schrodinger", 2, 2e-4,
-                     marks=pytest.mark.slow),   # wide (grid-sliced) path
+    @pytest.mark.parametrize("problem,substeps,rtol,on_kernel", [
+        ("burgers", 4, 2e-5, True),          # multistep kernel
+        pytest.param("schrodinger", 2, 2e-4, False,
+                     marks=pytest.mark.slow),   # XLA, same step grid
     ])
-    def test_fused_single_launch_trajectory_parity(self, problem, substeps,
-                                                   rtol):
+    def test_fused_single_launch_trajectory_parity(self, monkeypatch,
+                                                   problem, substeps, rtol,
+                                                   on_kernel):
         """Trajectory mode runs the WHOLE snapshot horizon as one
-        multistep kernel launch; its rollout and loss-gradient must match
-        an XLA integration of the same uniform step grid exactly
-        (same RK steps, f32)."""
-        import dataclasses
-        from kanodes_tpu.experiments.pde_surrogate import (SurrogateConfig,
-                                                           make_data,
-                                                           make_model,
-                                                           make_fns)
-        from kanodes_tpu.ode import odeint_fixed
+        multistep solve (one kernel launch each way on the kernel route);
+        its rollout and loss-gradient must match an XLA integration of
+        the same uniform step grid exactly (same RK steps, f32)."""
+        from kanodes.experiments.pde_surrogate import (SurrogateConfig,
+                                                       make_data,
+                                                       make_model,
+                                                       make_fns)
+        from kanodes.ode import odeint_fixed
+        from kanodes.ops import rk_fused
+        monkeypatch.setattr(rk_fused, "kernel_wins",
+                            lambda spec: on_kernel)
         cfg = SurrogateConfig(problem=problem, substeps=substeps,
                               impl="fused")
         data = make_data(cfg)
@@ -175,10 +178,10 @@ class TestSurrogateExperiments:
 
     def test_schrodinger_loss_evaluates(self):
         # full training is heavy; assert one loss+grad step works
-        from kanodes_tpu.experiments.pde_surrogate import (SurrogateConfig,
-                                                           make_data,
-                                                           make_model,
-                                                           make_fns)
+        from kanodes.experiments.pde_surrogate import (SurrogateConfig,
+                                                       make_data,
+                                                       make_model,
+                                                       make_fns)
         cfg = SurrogateConfig(problem="schrodinger", substeps=40)
         data = make_data(cfg)
         model = make_model(cfg, data)
@@ -197,8 +200,8 @@ def test_grid_refinement_kdense_chain_preserves_function():
     span onto visited normalized inputs while preserving the learned
     function (lstsq refit), and training continues across the rebuild."""
     import numpy as np
-    from kanodes_tpu.experiments.pde_surrogate import (SurrogateConfig,
-                                                       run_grid_refinement)
+    from kanodes.experiments.pde_surrogate import (SurrogateConfig,
+                                                   run_grid_refinement)
 
     cfg = SurrogateConfig(problem="allen_cahn", kan_grid=5, iters=400,
                           eval_every=100, substeps=4,
@@ -225,8 +228,8 @@ def test_grid_refine_helper_roundtrip():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from kanodes_tpu.models import KANChain
-    from kanodes_tpu.sparsify.grid_refine import refine_kdense_chain_grid
+    from kanodes.models import KANChain
+    from kanodes.sparsify.grid_refine import refine_kdense_chain_grid
 
     chain = KANChain.mlp_like([3, 6, 3], grid_len=7)
     params = chain.init(jax.random.PRNGKey(0))
@@ -249,9 +252,9 @@ def test_ac_2d_short_training_descends_fused_matches_xla():
     Kronecker operator through both impls."""
     import jax
 
-    from kanodes_tpu.experiments.pde_source import (SourceConfig,
-                                                    make_data, make_fns,
-                                                    make_model, run)
+    from kanodes.experiments.pde_source import (SourceConfig,
+                                                make_data, make_fns,
+                                                make_model, run)
     kw = dict(problem="allen_cahn", ndim=2, grid_n=8, data_substeps=20,
               substeps=2)
     cfg = SourceConfig(**kw, iters=100, eval_every=100)
@@ -275,7 +278,7 @@ def test_ac_2d_short_training_descends_fused_matches_xla():
 def test_ac_2d_surrogate_short_training_descends():
     """Beyond parity: 2-D FULL-STATE Allen-Cahn surrogate ([n^2,H,n^2]
     chain) trains on both impls with the unmodified wide kernels."""
-    from kanodes_tpu.experiments.pde_surrogate import SurrogateConfig, run
+    from kanodes.experiments.pde_surrogate import SurrogateConfig, run
     for impl in ("xla", "fused"):
         cfg = SurrogateConfig(problem="allen_cahn_2d", data_n=8,
                               data_substeps=10, iters=60, eval_every=60,

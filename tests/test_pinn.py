@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kanodes_tpu.pinn import geometry as G
-from kanodes_tpu.pinn import losses as L
-from kanodes_tpu.pinn.model import GaussianKANLayer, KANPINN
-from kanodes_tpu.pinn.train import (PINNConfig, sample_epoch_batch, train,
-                                    cross_verification, pde_weight_schedule)
+from kanodes.pinn import geometry as G
+from kanodes.pinn import losses as L
+from kanodes.pinn.model import GaussianKANLayer, KANPINN
+from kanodes.pinn.train import (PINNConfig, sample_epoch_batch, train,
+                                cross_verification, pde_weight_schedule)
 
 
 @pytest.fixture
@@ -177,7 +177,7 @@ class TestTraining:
         assert np.isfinite(out["history"]["loss"]).all()
 
     def test_polish_never_worse_on_frozen_objective(self, tiny_cfg):
-        from kanodes_tpu.pinn.train import polish_pinn, validation_selection
+        from kanodes.pinn.train import polish_pinn, validation_selection
         out = train(tiny_cfg)
         pol = polish_pinn(out, iters=8, linesearch_steps=8)
         # polish guarantees best-so-far on ITS frozen objective: the
@@ -196,7 +196,7 @@ class TestTraining:
         assert sel == pytest.approx(out["best_val"], rel=1e-4)
 
     def test_gates(self, tiny_cfg):
-        from kanodes_tpu.diag.gates import evaluate, report, GateThresholds
+        from kanodes.diag.gates import evaluate, report, GateThresholds
         out = train(tiny_cfg)
         diag = cross_verification(out, n_grid=21)
         res = evaluate(diag)
@@ -208,9 +208,9 @@ class TestTraining:
 
 @pytest.mark.slow
 def test_adaptive_residual_resampling():
-    from kanodes_tpu.pinn.train import adaptive_residual_points
-    from kanodes_tpu.pinn import losses as L
-    from kanodes_tpu.pinn.model import KANPINN
+    from kanodes.pinn.train import adaptive_residual_points
+    from kanodes.pinn import losses as L
+    from kanodes.pinn.model import KANPINN
     import numpy as np
     geo = G.Geometry()
     mat = L.Material()
@@ -241,8 +241,8 @@ def test_device_topk_matches_host_selection():
     """The in-scan jax.lax.top_k pick equals the host argpartition pick
     on the same candidate pool (StrainLimiting_KAN_PINN.py:400-431)."""
     import numpy as np
-    from kanodes_tpu.pinn import losses as L
-    from kanodes_tpu.pinn.model import KANPINN
+    from kanodes.pinn import losses as L
+    from kanodes.pinn.model import KANPINN
 
     geo = G.Geometry()
     mat = L.Material()
@@ -269,7 +269,7 @@ def test_checkpoint_driven_gate_cli(tmp_path):
     be audited standalone — model rebuilt from the stored config, the
     diagnostics recomputed from the restored best params, gates applied
     (eval_pass_fail.py:13-20,73-90 parity)."""
-    from kanodes_tpu.diag import gates
+    from kanodes.diag import gates
 
     tiny = PINNConfig(widths=(2, 10, 1), n_basis=6, adam_epochs=8,
                       finetune_epochs=0, pretrain_epochs=2,

@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from kanodes_tpu.train.polish import PolishConfig, polish, polish_members
+from kanodes.train.polish import PolishConfig, polish, polish_members
 
 
 def _rosenbrock(p):

@@ -1,14 +1,14 @@
-"""Whole-RK-step fused kernel vs composed reference (interpret mode)."""
+"""Whole-RK-step kernels vs the composed XLA reference (interpret mode)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kanodes_tpu.models import KANChain
-from kanodes_tpu.ode import odeint_fixed
-from kanodes_tpu.ops.kdense_pallas import chain_spec_of, fused_params
-from kanodes_tpu.ops.rk_fused import fused_rk_step, fused_odeint
+from kanodes.models import KANChain
+from kanodes.ode import odeint_fixed
+from kanodes.ops.kan_chain import chain_spec_of, fused_params
+from kanodes.ops.rk_fused import fused_rk_step, fused_odeint
 
 
 @pytest.fixture
@@ -25,7 +25,7 @@ def test_fused_step_matches_rk_step(setup, solver):
     chain, params, spec = setup
     x = jnp.asarray([[1.0, 1.0], [0.5, 2.0]])
     dt = 0.1
-    y = fused_rk_step(spec, solver, dt, x, *fused_params(params), True)
+    y = fused_rk_step(spec, solver, dt, x, *fused_params(params))
 
     def rhs(t, u, p):
         return chain.apply(p, u)
@@ -43,7 +43,7 @@ def test_fused_step_gradients_match(setup):
     tgt = x * 1.05
 
     def loss_fused(params, x):
-        y = fused_rk_step(spec, "tsit5", dt, x, *fused_params(params), True)
+        y = fused_rk_step(spec, "tsit5", dt, x, *fused_params(params))
         return jnp.mean((y - tgt) ** 2)
 
     def rhs(t, u, p):
@@ -65,8 +65,7 @@ def test_fused_step_gradients_match(setup):
 def test_fused_odeint_trajectory(setup):
     chain, params, spec = setup
     x0 = jnp.asarray([[1.0, 1.0]])
-    ys = fused_odeint(spec, "tsit5", 0.1, 10, x0, *fused_params(params),
-                      interpret=True)
+    ys = fused_odeint(spec, "tsit5", 0.1, 10, x0, *fused_params(params))
     assert ys.shape == (11, 1, 2)
 
     def rhs(t, u, p):
@@ -78,30 +77,30 @@ def test_fused_odeint_trajectory(setup):
 
 
 def test_fsal_stage_pruned():
-    from kanodes_tpu.ode.tableaus import TSIT5
-    from kanodes_tpu.ops.rk_fused import _needed_stages
+    from kanodes.ode.tableaus import TSIT5
+    from kanodes.ops.rk_fused import _needed_stages
     needed = _needed_stages(TSIT5)
     assert needed == [True] * 6 + [False]   # 7th (FSAL) stage unused
 
 
 def test_multistep_matches_scanned_steps(setup):
-    from kanodes_tpu.ops.rk_fused import fused_rk_multistep
+    from kanodes.ops.rk_fused import fused_rk_multistep
     chain, params, spec = setup
     fp = fused_params(params)
     x0 = jnp.asarray([[1.0, 1.0], [0.4, 2.0]])
     dt, n = 0.1, 7
-    ys = fused_rk_multistep(spec, "tsit5", dt, n, x0, *fp, True)
+    ys = fused_rk_multistep(spec, "tsit5", dt, n, x0, *fp)
     assert ys.shape == (n, 2, 2)
     # reference: scan of single fused steps
     x = x0
     for s in range(n):
-        x = fused_rk_step(spec, "tsit5", dt, x, *fp, True)
+        x = fused_rk_step(spec, "tsit5", dt, x, *fp)
         np.testing.assert_allclose(ys[s], x, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.slow
 def test_multistep_gradients_match_scan(setup):
-    from kanodes_tpu.ops.rk_fused import fused_rk_multistep
+    from kanodes.ops.rk_fused import fused_rk_multistep
     chain, params, spec = setup
     x0 = jnp.asarray([[1.0, 1.0]])
     dt, n = 0.1, 6
@@ -109,14 +108,14 @@ def test_multistep_gradients_match_scan(setup):
 
     def loss_multi(params, x0):
         fp = fused_params(params)
-        ys = fused_rk_multistep(spec, "tsit5", dt, n, x0, *fp, True)
+        ys = fused_rk_multistep(spec, "tsit5", dt, n, x0, *fp)
         return jnp.mean((ys - tgt) ** 2)
 
     def loss_scan(params, x0):
         fp = fused_params(params)
         x, acc = x0, 0.0
         for s in range(n):
-            x = fused_rk_step(spec, "tsit5", dt, x, *fp, True)
+            x = fused_rk_step(spec, "tsit5", dt, x, *fp)
             acc = acc + jnp.mean((x - tgt[s]) ** 2)
         return acc / n
 
@@ -132,10 +131,10 @@ def test_bwd_precision_validated_at_call():
     KeyError at backward-trace time."""
     import pytest
 
-    from kanodes_tpu.models import KDense
-    from kanodes_tpu.models.core import Chain
-    from kanodes_tpu.ops.kdense_pallas import chain_spec_of, fused_params
-    from kanodes_tpu.ops.rk_fused import fused_rk_multistep, fused_rk_step
+    from kanodes.models import KDense
+    from kanodes.models.core import Chain
+    from kanodes.ops.kan_chain import chain_spec_of, fused_params
+    from kanodes.ops.rk_fused import fused_rk_multistep, fused_rk_step
 
     chain = Chain(KDense(2, 4, 5), KDense(4, 2, 5))
     spec = chain_spec_of(chain)
@@ -144,7 +143,7 @@ def test_bwd_precision_validated_at_call():
     x = jnp.ones((1, 2), jnp.float32)
     with pytest.raises(ValueError, match="bwd_precision"):
         fused_rk_step(spec, "rk4", 0.1, x, c1, w1, c2, w2,
-                      bwd_precision="bfloat16")
+                      bwd_precision="bf16")
     with pytest.raises(ValueError, match="bwd_precision"):
         fused_rk_multistep(spec, "rk4", 0.1, 3, x, c1, w1, c2, w2,
                            bwd_precision="f32")
@@ -154,7 +153,7 @@ def test_bwd_precision_validated_at_call():
 def test_fused_multistep_alt_basis_matches_xla(basis):
     """Whole-trajectory multistep kernel with the alternate LOCAL bases:
     rollout and loss-gradient parity vs the XLA integrator."""
-    from kanodes_tpu.ops.rk_fused import fused_rk_multistep
+    from kanodes.ops.rk_fused import fused_rk_multistep
 
     chain = KANChain.mlp_like([2, 10, 2], grid_len=5, basis=basis)
     params = jax.tree_util.tree_map(
@@ -163,7 +162,7 @@ def test_fused_multistep_alt_basis_matches_xla(basis):
     fp = fused_params(params)
     x0 = jnp.asarray([[1.0, 1.0]])
     dt, n = 0.1, 5
-    ys = fused_rk_multistep(spec, "tsit5", dt, n, x0, *fp, True)
+    ys = fused_rk_multistep(spec, "tsit5", dt, n, x0, *fp)
 
     def rhs(t, u, p):
         return chain.apply(p, u)
@@ -176,8 +175,8 @@ def test_fused_multistep_alt_basis_matches_xla(basis):
 
     def loss_fused(p):
         fp = fused_params(p)
-        return jnp.mean((fused_rk_multistep(spec, "tsit5", dt, n, x0, *fp,
-                                            True) - tgt) ** 2)
+        return jnp.mean((fused_rk_multistep(spec, "tsit5", dt, n, x0,
+                                            *fp) - tgt) ** 2)
 
     def loss_ref(p):
         ys = odeint_fixed(rhs, x0[0], ts, p, solver="tsit5")[1:]

@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kanodes_tpu.models import KANChain
-from kanodes_tpu.sparsify.activations import (chain_activations,
-                                              activation_magnitudes)
-from kanodes_tpu.sparsify.prune import node_scores, prune
+from kanodes.models import KANChain
+from kanodes.sparsify.activations import (chain_activations,
+                                          activation_magnitudes)
+from kanodes.sparsify.prune import node_scores, prune
 
 
 @pytest.fixture
@@ -94,8 +94,8 @@ def test_pruned_chain_trains(chain, cparams, xs):
 def test_grid_refine_rejects_trainable_grid():
     import pytest
 
-    from kanodes_tpu.models import KANChain
-    from kanodes_tpu.sparsify.grid_refine import refine_kdense_chain_grid
+    from kanodes.models import KANChain
+    from kanodes.sparsify.grid_refine import refine_kdense_chain_grid
 
     chain = KANChain.mlp_like([2, 4, 2], grid_len=5, trainable_grid=True)
     params = chain.init(jax.random.PRNGKey(0))

@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kanodes_tpu.ode.stiff import odeint_implicit
-from kanodes_tpu.ode import odeint_fixed
+from kanodes.ode.stiff import odeint_implicit
+from kanodes.ode import odeint_fixed
 
 
 def test_accuracy_on_smooth_problem():
@@ -64,7 +64,7 @@ def test_newton_convergence_flag():
     """kvaerno3_step surfaces Newton failure instead of silently
     returning garbage: a huge step on a strongly nonlinear RHS fails,
     a small one converges."""
-    from kanodes_tpu.ode.stiff import kvaerno3_step
+    from kanodes.ode.stiff import kvaerno3_step
 
     def rhs(t, y, a):
         return 1.0 + y ** 2          # Riccati blowup
@@ -114,8 +114,8 @@ def test_datagen_truth_cross_validated_by_implicit_solver():
     Rodas5). Two unrelated integrators agreeing to 1e-8 certifies both."""
     import jax
 
-    from kanodes_tpu.pde.datagen import _cyclic_lap
-    from kanodes_tpu.utils.host_rk import rk4_dense
+    from kanodes.pde.datagen import _cyclic_lap
+    from kanodes.utils.host_rk import rk4_dense
 
     with jax.enable_x64():
         # ---- Allen-Cahn surrogate RHS (full reference grid, n=41)
@@ -196,7 +196,7 @@ def test_truth_data_validates_against_stiff_solver():
         "jax.config.update('jax_platforms','cpu');"
         "jax.config.update('jax_enable_x64',True);"
         "import json;"
-        "from kanodes_tpu.pde.datagen import validate_truth_against_stiff;"
+        "from kanodes.pde.datagen import validate_truth_against_stiff;"
         "ac=validate_truth_against_stiff('allen_cahn_surrogate',dx=0.1);"
         "sc=validate_truth_against_stiff('schrodinger',dx=0.5,"
         "rtol=1e-10,atol=1e-12);"

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from kanodes_tpu.symbolic.engine import fit_expression
-from kanodes_tpu.symbolic.fit import (simplify_expression,
-                                      fit_scalar_function,
-                                      resimulate_symbolic_rhs)
+from kanodes.symbolic.engine import fit_expression
+from kanodes.symbolic.fit import (simplify_expression,
+                                  fit_scalar_function,
+                                  resimulate_symbolic_rhs)
 
 
 def test_recovers_fisher_kpp_source():
@@ -44,7 +44,7 @@ def test_two_variable_recovery():
 def test_fit_pareto_front():
     """The engine's Pareto archive: strictly improving MSE with size,
     and the true 2-term law appears as a compact front member."""
-    from kanodes_tpu.symbolic.engine import fit_pareto
+    from kanodes.symbolic.engine import fit_pareto
     rng = np.random.default_rng(0)
     x = rng.uniform(0.1, 2.0, (250, 1))
     y = 1.5 * x[:, 0] - x[:, 0] ** 2
@@ -82,7 +82,7 @@ def test_resimulate_symbolic_rhs():
     assert ys.shape == (36, 2)
     assert np.isfinite(np.asarray(ys)).all()
     # close to the true LV trajectory
-    from kanodes_tpu.experiments.lv import LVConfig, make_data
+    from kanodes.experiments.lv import LVConfig, make_data
     data = make_data(LVConfig())
     X = np.asarray(data["X"])[:36]
     assert float(np.mean((np.asarray(ys) - X) ** 2)) < 0.05
@@ -93,7 +93,7 @@ def test_resimulate_symbolic_rhs():
 # ---------------------------------------------------------------------------
 
 def test_polynomial_library_names_and_values():
-    from kanodes_tpu.symbolic.sindy import polynomial_library
+    from kanodes.symbolic.sindy import polynomial_library
 
     X = np.asarray([[2.0, 3.0]])
     theta, names = polynomial_library(X, degree=2)
@@ -105,7 +105,7 @@ def test_polynomial_library_names_and_values():
 
 
 def test_stlsq_recovers_sparse_coefficients_under_noise():
-    from kanodes_tpu.symbolic.sindy import polynomial_library, stlsq
+    from kanodes.symbolic.sindy import polynomial_library, stlsq
 
     rng = np.random.default_rng(0)
     X = rng.uniform(-2, 2, (400, 2))
@@ -122,8 +122,8 @@ def test_sindy_recovers_lv_rhs_exactly():
     """The LV vector field (1.5x-xy, xy-3y) comes back with exact
     least-squares coefficients — the closed-form counterpart of the GP
     fits in Symbolic_reg.jl:122-156."""
-    from kanodes_tpu.symbolic.fit import eval_symreg_expr
-    from kanodes_tpu.symbolic.sindy import fit_sindy
+    from kanodes.symbolic.fit import eval_symreg_expr
+    from kanodes.symbolic.sindy import fit_sindy
 
     rng = np.random.default_rng(2)
     X = rng.uniform(0.2, 4.0, (500, 2))
@@ -139,9 +139,9 @@ def test_sindy_recovers_lv_rhs_exactly():
 
 
 def test_sindy_expressions_resimulate():
-    from kanodes_tpu.symbolic.fit import resimulate_symbolic_rhs
-    from kanodes_tpu.symbolic.sindy import fit_sindy
-    from kanodes_tpu.utils.host_rk import rk4_dense
+    from kanodes.symbolic.fit import resimulate_symbolic_rhs
+    from kanodes.symbolic.sindy import fit_sindy
+    from kanodes.utils.host_rk import rk4_dense
 
     rng = np.random.default_rng(3)
     X = rng.uniform(0.2, 4.0, (500, 2))
@@ -165,7 +165,7 @@ def test_sindy_auto_threshold_rejects_systematic_model_error():
     approximation error generalizes to held-out samples, so plain
     validation or BIC keeps the dense fit — the penalized sweep in
     `_auto_support` is what prunes it)."""
-    from kanodes_tpu.symbolic.sindy import fit_sindy
+    from kanodes.symbolic.sindy import fit_sindy
 
     rng = np.random.default_rng(0)
     t = rng.uniform(0, 1, 4000)
@@ -187,7 +187,7 @@ def test_sindy_recovers_source_laws():
     """Fisher-KPP (x - x^2) and Allen-Cahn (5x - 5x^3) — the laws the
     reference recovers by GP (Fisher-KPP_Source.jl:234,
     Allen-Cahn_Source.jl:227) — in one lstsq pass each."""
-    from kanodes_tpu.symbolic.sindy import fit_sindy
+    from kanodes.symbolic.sindy import fit_sindy
 
     x = np.linspace(0, 1, 200)[:, None]
     fits = fit_sindy(x, x[:, 0] * (1 - x[:, 0]), degree=3)
@@ -211,10 +211,10 @@ def test_recover_source_sindy_method():
     source model and returns an evaluable expression."""
     import jax
 
-    from kanodes_tpu.experiments.pde_source import (SourceConfig,
-                                                    make_data, make_model,
-                                                    recover_source)
-    from kanodes_tpu.symbolic.fit import eval_symreg_expr
+    from kanodes.experiments.pde_source import (SourceConfig,
+                                                make_data, make_model,
+                                                recover_source)
+    from kanodes.symbolic.fit import eval_symreg_expr
 
     cfg = SourceConfig(problem="fisher_kpp")
     data = make_data(cfg)
@@ -233,8 +233,8 @@ def test_sindy_from_trajectory_recovers_lv():
     """Classical SINDy: the LV field straight from the reference's
     training-horizon SAMPLES (dt=0.1, 35 points) — no model training,
     derivatives by 4th-order central differences."""
-    from kanodes_tpu.experiments.lv import LVConfig, make_data
-    from kanodes_tpu.symbolic.sindy import fit_sindy_trajectory
+    from kanodes.experiments.lv import LVConfig, make_data
+    from kanodes.symbolic.sindy import fit_sindy_trajectory
 
     data = make_data(LVConfig())
     n = data["n_train"]
@@ -254,7 +254,7 @@ def test_sindy_from_trajectory_recovers_lv():
 
 
 def test_sindy_trajectory_rejects_bad_inputs():
-    from kanodes_tpu.symbolic.sindy import fit_sindy_trajectory
+    from kanodes.symbolic.sindy import fit_sindy_trajectory
 
     with np.testing.assert_raises(ValueError):
         fit_sindy_trajectory(np.asarray([0.0, 0.1, 0.3, 0.4, 0.5]),
@@ -267,8 +267,8 @@ def test_recover_source_from_data_no_training():
     """No-training source recovery: FD time-derivative minus known
     diffusion, SINDy on the pointwise residual — exact laws from the
     snapshots alone, 1-D and 2-D."""
-    from kanodes_tpu.experiments.pde_source import recover_source_from_data
-    from kanodes_tpu.pde import datagen
+    from kanodes.experiments.pde_source import recover_source_from_data
+    from kanodes.pde import datagen
 
     r = recover_source_from_data(datagen.allen_cahn_source())
     assert r["fit"].n_terms == 2
